@@ -3,18 +3,20 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It builds every kernel of the serving path from ``distributed_ba3c_tpu_torch``'s
-sources, holds each against its plain PyTorch version at the shapes the path
-gives it, then drives the path through the entry points a user calls:
+It builds every kernel of the port's paths from ``distributed_ba3c_tpu_torch``'s
+sources, holds each against its plain PyTorch version at the shapes the paths
+give it, then drives the paths through the entry points a user calls:
 ``BA3CNet`` at full width (84x84x4 uint8 frames, convs 32/32/64/64, FC 512,
 6 actions, seeded random weights) on native Pong frames, ``BatchedPredictor``
-serving block and single-row requests, and ``python -m
-distributed_ba3c_tpu_torch --task play``. Every phase must pass; any failure
-exits nonzero and prints no result.
+serving block and single-row requests, ``python -m
+distributed_ba3c_tpu_torch --task play``, and ``--task train --trainer
+tpu_fused_ba3c --env jax:pong`` (128 envs x 20 steps per update, the learner
+through the conv-block kernel and its custom VJP). Every phase must pass;
+any failure exits nonzero and prints no result.
 
 The last lines of standard output are: the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
-them), one JSON object with each kernel's launches on the served path,
+them), one JSON object with each kernel's launches on the driven paths,
 error against the plain version, times and bound, and last
 ``{"ok": true, "device": {...}}``. Times are CUDA-event times on this card,
 after a warmup; the bound is the larger of the bytes the function must move
@@ -24,7 +26,9 @@ sheet, dense, at 700 W).
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -36,6 +40,9 @@ B = 256                    # the serving bucket the predictor runs at
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 REL_TOL = 2e-2             # max|d| / max|ref| (tests/test_pallas_conv.py:63)
+GRAD_REL_L2 = 2e-2         # per leaf, kernel-forward vs plain-forward gradients
+TRAIN_B = 2560             # one learner chunk: 128 envs x 20 rollout steps
+TRAIN_ENVS, TRAIN_T = 128, 20
 ULP_SHARE = 0.999          # elements within one bf16 ulp of the plain version
 WARMUP_BUCKETS = B.bit_length()  # pow-2 buckets 1..B that warmup() runs
 
@@ -96,8 +103,6 @@ def phase_kernels(dev):
     """Each conv block geometry at B=256: the kernel against its plain
     version on the same seeded inputs, and the times of kernel, plain
     version and one library computation of the same function."""
-    import dataclasses
-
     import torch
     import torch.nn.functional as F
 
@@ -373,6 +378,259 @@ def phase_play(dev):
         raise AssertionError(f"--task play returned {rc}")
 
 
+def pong_train_states(dev, n_envs: int = TRAIN_ENVS, steps: int = TRAIN_T, seed: int = 0):
+    """[n_envs * steps, 84, 84, 4] uint8 frame stacks of the port's device
+    Pong stepped with seeded random actions: one learner chunk's states."""
+    import torch
+
+    from distributed_ba3c_tpu_torch.envs.jaxenv import pong
+    from distributed_ba3c_tpu_torch.fused.loop import initial_stack, push_frame, device_draws
+
+    draws = device_draws(pong, seed, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    state = pong.reset(draws.reset_noise(n_envs, dev))
+    stack = initial_stack(pong, state, 4)
+    out = []
+    for _ in range(steps + 8):
+        a = torch.randint(0, 6, (n_envs,), generator=g, device=dev, dtype=torch.int32)
+        state, obs, _, done = pong.step(state, a, draws.env_noise(n_envs, dev))
+        stack = push_frame(stack, obs, done)
+        out.append(stack)
+    return torch.cat(out[-steps:])
+
+
+def phase_vjp(dev, states):
+    """The conv_block Function (kernel forward, plain-recompute backward) per
+    block at B=2560, as the learner runs it, against the plain block under
+    autograd on the same inputs, with the times of both and of the library's
+    F.conv2d + relu + F.max_pool2d under autograd."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_ba3c_tpu_torch.ops.conv_block import (
+        ba3c_specs,
+        conv_block,
+        conv_block_fwd,
+        flax_block,
+        reference_block,
+        supported,
+    )
+
+    g = torch.Generator().manual_seed(1)
+    x = (states.reshape(TRAIN_B, 84, 84 * 4).to(torch.bfloat16) / 255.0).contiguous()
+    rows = []
+    saved = (conv_block_fwd.launches, conv_block.launches)
+    for i, s0 in enumerate(ba3c_specs()):
+        s = dataclasses.replace(s0, scale_uint8=False)
+        plain = reference_block if supported(s) else flax_block
+        w = (torch.randn((s.kh, s.kw, s.Ci, s.Co), generator=g) * 0.1).to(torch.bfloat16).to(dev)
+        b = (torch.randn((s.Co,), generator=g) * 0.05).to(torch.bfloat16).to(dev)
+        gy = torch.randn((TRAIN_B, s.Ho, s.Wo * s.Co), generator=g).to(torch.bfloat16).to(dev)
+        x_grad = i > 0  # the model's block 0 takes the frames, which need no gradient
+
+        def run(fn, x=x, w=w, b=b, gy=gy, x_grad=x_grad):
+            leaves = [x.detach().requires_grad_(x_grad), w.detach().requires_grad_(True),
+                      b.detach().requires_grad_(True)]
+            y = fn(*leaves)
+            y.backward(gy)
+            return [y.detach()] + [t.grad for t in leaves if t.grad is not None]
+
+        fn_kernel = lambda xx, ww, bb, s=s, plain=plain: conv_block(xx, ww, bb, s, plain)
+        fn_plain = lambda xx, ww, bb, s=s, plain=plain: plain(xx, ww, bb, s)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        pad = (s.pw, s.kw - 1 - s.pw, s.ph, s.kh - 1 - s.ph)
+
+        def fn_library(xx, ww, bb, s=s, pad=pad):
+            x4 = xx.reshape(TRAIN_B, s.H, s.W, s.Ci).permute(0, 3, 1, 2)
+            y = F.relu(F.conv2d(F.pad(x4, pad), ww.permute(3, 2, 0, 1), bb))
+            y = F.max_pool2d(y, 2) if s.pool else y
+            return y.permute(0, 2, 3, 1).reshape(TRAIN_B, s.Ho, s.Wo * s.Co)
+
+        got, ref = run(fn_kernel), run(fn_plain)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref)]
+        scales = [float(r.float().abs().max()) for r in ref]
+        names = ["y"] + (["dx"] if x_grad else []) + ["dw", "db"]
+        ok = all(e <= REL_TOL * max(sc, 1e-6) for e, sc in zip(errs, scales))
+        log(f"[vjp] block{i} ({plain.__name__} rules) B={TRAIN_B}: "
+            + " ".join(f"{n} max|d|={e:.4g} (max|ref| {sc:.4g})" for n, e, sc in zip(names, errs, scales))
+            + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"conv_block VJP disagrees with its plain block on block{i}")
+        # bf16 bytes: x, w, b and the cotangent read once; y, dw, db (and
+        # dx where x takes a gradient) written once. Operations: the
+        # forward conv, the weight gradient, and the input gradient where
+        # it is computed
+        n_bytes = 2 * (x.numel() + w.numel() + b.numel() + gy.numel()
+                       + gy.numel() + w.numel() + b.numel() + x.numel() * x_grad)
+        n_ops = (2 + x_grad) * TRAIN_B * s.flops_per_sample
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / BF16_FLOPS_PER_S * 1e3
+        row = {
+            "block": f"block{i}",
+            "rules": plain.__name__,
+            "shape": [TRAIN_B, s.H, s.W, s.Ci, s.Co, s.kh, int(s.pool)],
+            "max_abs_err": max(errs),
+            "max_abs_err_by_output": dict(zip(names, errs)),
+            "ms": time_ms(lambda: run(fn_kernel), iters=5, warmup=2),
+            "plain_ms": time_ms(lambda: run(fn_plain), iters=5, warmup=2),
+            "library_ms": time_ms(lambda: run(fn_library), iters=5, warmup=2),
+            "bytes": n_bytes,
+            "ops": n_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        log(f"[vjp] block{i}: fwd+bwd kernel path {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"library {row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.append(row)
+        x = ref[0]  # the next block takes this block's output
+    conv_block_fwd.launches, conv_block.launches = saved  # comparison launches do not count
+    return rows
+
+
+def _rel_l2(got, ref):
+    """Per-parameter ||got - ref|| / max(||ref||, 1e-3 ||all ref||)."""
+    total = math.sqrt(sum(float(r.double().square().sum()) for r in ref.values()))
+    return {k: float((got[k].double() - ref[k].double()).norm())
+            / max(float(ref[k].double().norm()), 1e-3 * total) for k in ref}
+
+
+def phase_train_grads(dev, states):
+    """One learner chunk (B=2560 Pong states) through BA3CNet(6) at full
+    width: the gradients with conv_backend="cuda" (the kernel forward and
+    the conv_block VJP) against conv_backend="torch" (the plain blocks)."""
+    import torch
+
+    from distributed_ba3c_tpu_torch.config import BA3CConfig
+    from distributed_ba3c_tpu_torch.fused.loop import learner_grads
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    actions = torch.randint(0, 6, (TRAIN_B,), generator=g, device=dev)
+    returns = torch.randn((TRAIN_B,), generator=g, device=dev)
+    grads, aux = {}, {}
+    for backend in ("cuda", "torch"):
+        net = BA3CNet(6, conv_backend=backend, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+        gs, loss = learner_grads(net, BA3CConfig(), states, actions, returns, 0.01,
+                                 grad_chunk_samples=TRAIN_B)
+        grads[backend] = {k: gr for (k, _), gr in zip(net.named_parameters(), gs)}
+        aux[backend] = float(loss.total)
+    torch.cuda.synchronize()
+    errs = _rel_l2(grads["cuda"], grads["torch"])
+    worst = max(errs, key=errs.get)
+    log(f"[train] learner chunk B={TRAIN_B} gradients, kernel vs plain forward: "
+        f"worst rel-L2 {errs[worst]:.3e} ({worst}); loss {aux['cuda']:.6f} vs {aux['torch']:.6f}")
+    if not all(torch.isfinite(v).all() for v in grads["cuda"].values()):
+        raise AssertionError("learner gradients on the card are not finite")
+    if errs[worst] >= GRAD_REL_L2:
+        raise AssertionError(f"learner gradients disagree: {errs}")
+    return errs
+
+
+def phase_train_cli(dev):
+    """The trainer through its entry point: 128 envs x 20 steps per update,
+    5 updates x 2 epochs, a 200-step greedy eval of 8 envs per epoch."""
+    import tempfile
+
+    from distributed_ba3c_tpu_torch.cli import main as cli_main
+
+    with tempfile.TemporaryDirectory() as logdir:
+        t0 = time.perf_counter()
+        rc = cli_main(["--task", "train", "--trainer", "tpu_fused_ba3c", "--env", "jax:pong",
+                       "--batch_size", str(TRAIN_B), "--rollout_len", str(TRAIN_T),
+                       "--steps_per_epoch", "5", "--max_epoch", "2", "--nr_eval", "8",
+                       "--eval_max_steps", "200", "--logdir", logdir,
+                       "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(logdir, "stat.json")) as f:
+            stats = json.load(f)
+    if rc != 0:
+        raise AssertionError(f"--task train returned {rc}")
+    for rec in stats:
+        for k in ("loss", "policy_loss", "value_loss", "entropy", "grad_norm"):
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"epoch {rec['epoch']}: {k} = {rec[k]}")
+    log(f"[train] cli: {len(stats)} epochs in {wall:.2f} s; " + "; ".join(
+        f"epoch {int(r['epoch'])}: env-steps/s {r['fps']:.1f} loss {r['loss']:.5f} "
+        f"entropy {r['entropy']:.4f} grad_norm {r['grad_norm']:.4f}" for r in stats))
+    return {"wall_s": wall, "updates": 10, "evals": 2, "eval_steps": 200, "epochs": stats}
+
+
+def phase_train_step(dev):
+    """The fused step at the trainer's shape through the API: launches per
+    update, a step at learning rate 0 leaves the params equal, a live step
+    moves them; and the update's parts timed with CUDA events."""
+    import torch
+
+    from distributed_ba3c_tpu_torch.config import BA3CConfig
+    from distributed_ba3c_tpu_torch.envs.jaxenv import pong
+    from distributed_ba3c_tpu_torch.fused.loop import (
+        push_frame,
+        create_fused_state,
+        learner_grads,
+        make_fused_step,
+    )
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+    from distributed_ba3c_tpu_torch.ops.conv_block import conv_block, conv_block_fwd
+
+    cfg = BA3CConfig(batch_size=TRAIN_B)
+    net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(0))
+    state = create_fused_state(0, net, cfg, pong, TRAIN_ENVS)
+    opt = state.train.optimizer
+    step = make_fused_step(net, opt, cfg, pong, TRAIN_T)
+    before = {k: v.clone() for k, v in net.state_dict().items()}
+    f0, v0 = conv_block_fwd.launches, conv_block.launches
+    state, m = step(state, 0.01, 0.0)
+    torch.cuda.synchronize()
+    per_update = (conv_block_fwd.launches - f0, conv_block.launches - v0)
+    same = all(torch.equal(v, before[k]) for k, v in net.state_dict().items())
+    state, m = step(state, 0.01, 1e-3)
+    torch.cuda.synchronize()
+    moved = sum(not torch.equal(v, before[k]) for k, v in net.state_dict().items())
+    finite = all(math.isfinite(float(v)) for v in m.values())
+    log(f"[train] step API: launches per update conv_block_fwd {per_update[0]} "
+        f"conv_block_vjp {per_update[1]}; lr=0 leaves params equal: {same}; "
+        f"lr=1e-3 moved {moved}/{len(before)} tensors; metrics finite: {finite}")
+    if not (same and moved > 0 and finite):
+        raise AssertionError("the fused step's update is wrong")
+
+    # the parts of one update at its shapes
+    B = TRAIN_ENVS
+    stack = state.obs_stack
+    actions = torch.randint(0, 6, (B,), device=dev, dtype=torch.int32)
+
+    def env_step():
+        st, obs, _, done = pong.step(state.env_state, actions, state.draws.env_noise(B, dev))
+        return push_frame(stack, obs, done)
+
+    flat_states = torch.cat([stack] * TRAIN_T)
+    flat_actions = torch.randint(0, 6, (TRAIN_B,), device=dev)
+    flat_returns = torch.randn((TRAIN_B,), device=dev)
+    grads, _ = learner_grads(net, cfg, flat_states, flat_actions, flat_returns, 0.01)
+    opt.set_learning_rate(0.0)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: net(stack), iters=10)
+    parts = {
+        "rollout_forward_ms": TRAIN_T * fwd_ms,
+        "bootstrap_forward_ms": fwd_ms,
+        "env_step_ms": TRAIN_T * time_ms(env_step, iters=10),
+        "learner_fwd_bwd_ms": time_ms(
+            lambda: learner_grads(net, cfg, flat_states, flat_actions, flat_returns, 0.01),
+            iters=3, warmup=1),
+        "optimizer_ms": time_ms(lambda: opt.step(grads), iters=10),
+    }
+    saved = (conv_block_fwd.launches, conv_block.launches)
+    parts["update_ms"] = time_ms(lambda: step(state, 0.01, 0.0), iters=3, warmup=1)
+    conv_block_fwd.launches, conv_block.launches = saved
+    parts["parts_sum_ms"] = sum(v for k, v in parts.items() if k not in ("update_ms",))
+    parts["env_steps_per_s"] = TRAIN_B / parts["update_ms"] * 1e3
+    log(f"[train] per update (B={B} envs x T={TRAIN_T}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+    return {"launches_per_update": {"conv_block_fwd": per_update[0],
+                                    "conv_block_vjp": per_update[1]}, **parts}
+
+
 def main() -> int:
     import torch
 
@@ -381,7 +639,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from distributed_ba3c_tpu_torch.ops.conv_block import conv_block_fwd
+    from distributed_ba3c_tpu_torch.ops.conv_block import conv_block, conv_block_fwd
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -414,15 +672,41 @@ def main() -> int:
     if play_launches == 0:
         raise AssertionError("--task play never launched conv_block_fwd")
 
+    train_states = pong_train_states(dev)
+    vjp_rows = phase_vjp(dev, train_states)
+    grad_errs = phase_train_grads(dev, train_states)
+    del train_states
+    conv_block_fwd.launches = conv_block.launches = 0
+    train = phase_train_cli(dev)
+    train_launches = {"conv_block_fwd": conv_block_fwd.launches,
+                      "conv_block_vjp": conv_block.launches}
+    # 4 blocks x (T rollout forwards + 1 bootstrap + 1 learner chunk) per
+    # update, and 4 per greedy-eval step; the VJP once per block and chunk
+    want = {"conv_block_fwd": train["updates"] * 4 * (TRAIN_T + 1 + 1)
+            + train["evals"] * train["eval_steps"] * 4,
+            "conv_block_vjp": train["updates"] * 4}
+    log(f"[train] cli launches: {train_launches} (expected {want}: 88 conv_block_fwd "
+        f"per update, 800 per eval, 4 conv_block_vjp per update)")
+    if train_launches != want:
+        raise AssertionError(f"train launches {train_launches}, expected {want}")
+    step = phase_train_step(dev)
+    if step["launches_per_update"] != {"conv_block_fwd": 4 * (TRAIN_T + 2), "conv_block_vjp": 4}:
+        raise AssertionError(f"launches per update: {step['launches_per_update']}")
+
     path = [r for r in rows if r["block"] != "block0_uint8"]
     t_bytes = sum(r["bytes"] for r in path) / HBM_BYTES_PER_S * 1e3
     t_ops = sum(r["ops"] for r in path) / BF16_FLOPS_PER_S * 1e3
+    v_bytes = sum(r["bytes"] for r in vjp_rows) / HBM_BYTES_PER_S * 1e3
+    v_ops = sum(r["ops"] for r in vjp_rows) / BF16_FLOPS_PER_S * 1e3
+    fwd_by_path = {"serve": serve_launches, "play": play_launches,
+                   "train": train_launches["conv_block_fwd"]}
     kernels = [{
         "name": "conv_block_fwd",
         "route": "cuda",
         "source": "distributed_ba3c_tpu_torch/csrc/conv_block.cu",
         "replaces": "distributed_ba3c_tpu/ops/pallas_conv.py:252",
-        "launches": serve_launches,
+        "launches": sum(fwd_by_path.values()),
+        "launches_by_path": fwd_by_path,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": sum(r["ms"] for r in path),
         "plain_ms": sum(r["plain_ms"] for r in path),
@@ -431,8 +715,25 @@ def main() -> int:
         "library_ms": sum(r["library_ms"] for r in path),
         "shapes": "the four blocks of one BA3CNet forward at B=256 (sums); per_block below",
         "per_block": rows,
+    }, {
+        "name": "conv_block_vjp",
+        "route": "cuda",
+        "source": "distributed_ba3c_tpu_torch/ops/conv_block.py",
+        "replaces": "distributed_ba3c_tpu/ops/pallas_conv.py:335",
+        "launches": train_launches["conv_block_vjp"],
+        "launches_by_path": {"train": train_launches["conv_block_vjp"]},
+        "max_abs_err": max(r["max_abs_err"] for r in vjp_rows),
+        "ms": sum(r["ms"] for r in vjp_rows),
+        "plain_ms": sum(r["plain_ms"] for r in vjp_rows),
+        "bound_ms": max(v_bytes, v_ops),
+        "bound_by": "bytes" if v_bytes >= v_ops else "operations",
+        "library_ms": sum(r["library_ms"] for r in vjp_rows),
+        "shapes": ("forward (csrc/conv_block.cu) + backward (plain recompute) of the four "
+                   f"blocks of one learner chunk at B={TRAIN_B} (sums); per_block below"),
+        "per_block": vjp_rows,
     }]
-    log(json.dumps({"serving": serve, "model_forward_ms": fwd, "play_launches": play_launches}))
+    log(json.dumps({"serving": serve, "model_forward_ms": fwd, "play_launches": play_launches,
+                    "train": {"cli": train, "step": step, "grad_rel_l2": grad_errs}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

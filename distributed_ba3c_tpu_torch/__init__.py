@@ -10,5 +10,9 @@ CPU path and the tests use.
 Ported so far: the serving path -- ``BA3CNet`` (models/a3c.py) through the
 fused conv-block kernel (ops/conv_block.py), ``BatchedPredictor``
 (predict/server.py), and ``python -m distributed_ba3c_tpu_torch --task
-play|eval`` (cli.py).
+play|eval`` (cli.py); and the training path -- the fused trainer
+(fused/loop.py, ``--task train --trainer tpu_fused_ba3c --env jax:pong``)
+on device Pong (envs/jaxenv/), with the conv block's custom VJP
+(``ops/conv_block.py::conv_block``), the loss, returns and optimizer
+(ops/).
 """

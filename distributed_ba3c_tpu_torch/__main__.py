@@ -1,4 +1,4 @@
-"""``python -m distributed_ba3c_tpu_torch --task play|eval ...`` (cli.py)."""
+"""``python -m distributed_ba3c_tpu_torch --task train|play|eval ...`` (cli.py)."""
 
 import sys
 

@@ -1,15 +1,17 @@
-"""Command line of the port: greedy eval and play of a BA3C policy.
+"""Command line of the port: train, eval and play of a BA3C policy.
 
-Port of the JAX package's ``cli.py`` ``--task eval`` (``_run_eval``) and
+Port of the JAX package's ``cli.py``: ``--task train`` with ``--trainer
+tpu_fused_ba3c`` (``_run_fused``), ``--task eval`` (``_run_eval``) and
 ``--task play`` (``_run_play``)::
 
+    python -m distributed_ba3c_tpu_torch --task train --trainer tpu_fused_ba3c --env jax:pong
     python -m distributed_ba3c_tpu_torch --task play --env cpp:pong
     python -m distributed_ba3c_tpu_torch --task eval --env fake --nr_eval 8
 
-Both serve the policy through :class:`BatchedPredictor` (``predict_batch``,
-greedy) on ``--device`` (``cuda`` by default; a missing card raises). The
-params come from a seeded init (``--seed``); loading a checkpoint waits for
-the checkpoint port.
+Everything runs on ``--device`` (``cuda`` by default; a missing card
+raises). eval and play serve the policy through :class:`BatchedPredictor`
+(``predict_batch``, greedy). The params come from a seeded init
+(``--seed``); loading a checkpoint waits for the checkpoint port.
 """
 
 from __future__ import annotations
@@ -20,19 +22,35 @@ from typing import Optional
 
 from distributed_ba3c_tpu_torch.config import BA3CConfig
 
+#: the JAX CLI's trainers, and what each waits for in the port
+TRAINERS = {
+    "tpu_fused_ba3c": None,
+    "tpu_sync_ba3c": "ROADMAP queue A item 6 (and the ZMQ actor plane, item 3)",
+    "tpu_vtrace_ba3c": "ROADMAP queue A item 6 (and the ZMQ actor plane, item 3)",
+}
+
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m distributed_ba3c_tpu_torch",
         description="Greedy eval/play of a BA3C policy on an H100 (PyTorch/CUDA)",
     )
-    p.add_argument("--task", default="eval", choices=["eval", "play"])
+    p.add_argument("--task", default="eval", choices=["train", "eval", "play"])
+    p.add_argument(
+        "--trainer", default="tpu_sync_ba3c", choices=sorted(TRAINERS),
+        help="learner backend for --task train; only tpu_fused_ba3c (the "
+        "fused on-device rollout+update) is ported",
+    )
     p.add_argument(
         "--env", default="fake",
-        help="fake (the chain MDP) or cpp:<game> (the native core, e.g. "
-        "cpp:pong; build it with `make -C cpp`)",
+        help="fake (the chain MDP), cpp:<game> (the native core, e.g. "
+        "cpp:pong; build it with `make -C cpp`) or jax:pong (the on-device "
+        "env of the fused trainer)",
     )
-    p.add_argument("--nr_eval", type=int, default=8, help="episodes to run")
+    p.add_argument(
+        "--nr_eval", type=int, default=8,
+        help="episodes to run (eval/play); greedy-eval envs (train)",
+    )
     p.add_argument(
         "--max_steps", type=int, default=None,
         help="step cap per episode (default: the config's "
@@ -59,11 +77,42 @@ def make_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--image_size", type=int, default=None, help="square observation size")
     p.add_argument("--fc_units", type=int, default=None)
+    # -- training (the JAX CLI's names and defaults) -------------------------
+    p.add_argument("--logdir", default="train_log/ba3c")
+    for name in ("learning_rate", "entropy_beta", "gamma", "grad_clip_norm",
+                 "adam_epsilon", "reward_clip"):
+        p.add_argument(f"--{name}", type=float, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--steps_per_epoch", type=int, default=1000)
+    p.add_argument("--max_epoch", type=int, default=100)
+    p.add_argument("--eval_every", type=int, default=1, help="epochs between greedy evals")
+    p.add_argument(
+        "--eval_max_steps", type=int, default=10000,
+        help="greedy-eval step horizon (must cover a full episode)",
+    )
+    p.add_argument("--rollout_len", type=int, default=20, help="rollout length per update")
+    p.add_argument(
+        "--grad_chunk_samples", type=int, default=4096,
+        help="learner chunk size (caps the activations of one fwd+bwd)",
+    )
+    p.add_argument(
+        "--steps_per_dispatch", type=int, default=1,
+        help="updates per step call (must divide --steps_per_epoch)",
+    )
+    p.add_argument("--entropy_beta_final", type=float, default=None, help="anneal entropy beta to this over max_epoch")
+    p.add_argument("--learning_rate_final", type=float, default=None, help="anneal LR to this over max_epoch")
+    p.add_argument("--anneal", default="linear", choices=["linear", "exp"], help="shape of the *_final anneals")
+    p.add_argument("--anneal_lr", default=None, choices=["linear", "exp"], help="override --anneal for learning_rate only")
+    p.add_argument("--anneal_beta", default=None, choices=["linear", "exp"], help="override --anneal for entropy_beta only")
     return p
 
 
 def env_num_actions(args) -> int:
     """The action-space size of the selected env."""
+    if args.env.startswith("jax:"):
+        from distributed_ba3c_tpu_torch.envs import jaxenv
+
+        return jaxenv.get_env(args.env.split(":", 1)[1]).num_actions
     if args.env.startswith("cpp:"):
         from distributed_ba3c_tpu_torch.envs import native
 
@@ -77,8 +126,13 @@ def env_num_actions(args) -> int:
 
 def build_config(args) -> BA3CConfig:
     over = {"num_actions": env_num_actions(args)}
-    if args.fc_units is not None:
-        over["fc_units"] = args.fc_units
+    for f in (
+        "learning_rate entropy_beta gamma batch_size fc_units grad_clip_norm "
+        "adam_epsilon reward_clip"
+    ).split():
+        v = getattr(args, f)
+        if v is not None:
+            over[f] = v
     if args.image_size is not None:
         over["image_size"] = (args.image_size, args.image_size)
     return BA3CConfig().replace(**over)
@@ -169,7 +223,18 @@ def main(argv: Optional[list] = None) -> int:
 
     from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
 
-    args = make_parser().parse_args(argv)
+    parser = make_parser()
+    args = parser.parse_args(argv)
+    if args.task == "train":
+        waits_for = TRAINERS[args.trainer]
+        if waits_for is not None:
+            parser.error(
+                f"--trainer {args.trainer} is not ported yet: it waits for "
+                f"{waits_for}; --trainer tpu_fused_ba3c is"
+            )
+        from distributed_ba3c_tpu_torch.fused.loop import run_fused_training
+
+        return run_fused_training(args, build_config(args))
     cfg = build_config(args)
     model = BA3CNet(
         num_actions=cfg.num_actions,

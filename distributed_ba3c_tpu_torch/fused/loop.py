@@ -1,0 +1,484 @@
+"""The fused rollout+update step and its training loop, on one device.
+
+Port of ``distributed_ba3c_tpu/fused/loop.py``. One step, as there:
+
+    T rollout steps (a Python loop for the lax.scan), without gradients:
+        forward the policy on the frame stacks (the conv-block kernel)
+        sample actions: argmax(logits + Gumbel noise)
+        env.step: physics + uint8 render for B envs (envs/jaxenv/pong.py)
+        update frame stacks and episode-return accumulators
+    bootstrap value on the final stacks
+    n-step returns (reverse loop, done-masked)       ops/returns.py
+    a3c loss over the flat [T*B] batch, in grad_chunk_samples chunks;
+        the gradient is the mean of the chunk gradients (ops/loss.py)
+    grad_summaries of the unclipped gradients; global-norm clip, then Adam
+
+It runs on one device with no mesh: the data-axis mean over one shard is
+the identity. The JAX step's random key becomes a draw source
+(:class:`GeneratorDraws`): every random number of the step comes from it,
+so a test can hand the step the draws JAX made from its keys.
+
+``run_fused_training`` is the epoch loop without what the JAX loop adds
+for multi-host runs, overlap, int8, ``fleet_accum``, checkpoints and
+``--load``, the telemetry server, the watchdog, ``hyper.txt`` and
+``BA3C_PARAM_DIGEST`` (ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from distributed_ba3c_tpu_torch.config import BA3CConfig
+from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+from distributed_ba3c_tpu_torch.ops.gradproc import ClipAdam, grad_summaries
+from distributed_ba3c_tpu_torch.ops.loss import A3CLossOut, a3c_loss
+from distributed_ba3c_tpu_torch.ops.returns import n_step_returns
+from distributed_ba3c_tpu_torch.parallel.train_step import (
+    TrainState,
+    create_train_state,
+)
+
+#: metrics that accumulate in the state across an epoch (reset by the outer
+#: loop): a K-step dispatch takes their LAST value, every other metric is
+#: the mean over the dispatch window
+CUMULATIVE_METRICS = ("episodes", "episode_return_sum")
+
+
+class GeneratorDraws:
+    """The fused trainer's random draws, from one ``torch.Generator``.
+
+    The counterpart of the JAX step's key. A draw source has three
+    methods, called in this order by each rollout step: ``action_noise``
+    (Gumbel noise for the actions) and ``env_noise`` (the env's step
+    draws); ``reset_noise`` serves fresh envs.
+    """
+
+    def __init__(self, env, generator: torch.Generator):
+        self.env = env
+        self.generator = generator
+
+    def action_noise(self, shape, device) -> torch.Tensor:
+        """Gumbel(0, 1) noise, ``-log(-log(u))`` as ``jax.random.gumbel``."""
+        u = torch.rand(shape, generator=self.generator, device=device)
+        return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+
+    def env_noise(self, n: int, device) -> torch.Tensor:
+        return self.env.sample_noise(
+            n, self.env.FRAME_SKIP + 1, self.generator, device
+        )
+
+    def reset_noise(self, n: int, device) -> torch.Tensor:
+        return self.env.sample_noise(n, 1, self.generator, device)[:, 0]
+
+
+def device_draws(env, seed: int, device) -> GeneratorDraws:
+    """A :class:`GeneratorDraws` on ``device`` seeded with ``seed``."""
+    return GeneratorDraws(env, torch.Generator(device=device).manual_seed(seed))
+
+
+@dataclasses.dataclass
+class FusedState:
+    train: TrainState
+    env_state: Any              # batched env state, leaves [B, ...]
+    obs_stack: torch.Tensor     # [B, H, W, hist] uint8
+    draws: Any                  # the draw source (the JAX state's key)
+    ep_return: torch.Tensor     # [B] running episode return
+    ep_count: torch.Tensor      # [B] int32 completed episodes per env
+    ep_return_sum: torch.Tensor  # [B] float32 sum of completed returns per env
+
+
+def _param_device(model: BA3CNet) -> torch.device:
+    return next(model.parameters()).device
+
+
+def initial_stack(env, env_state, frame_history: int) -> torch.Tensor:
+    obs = env.render(env_state)  # [B, H, W]
+    stack = torch.zeros(
+        (*obs.shape, frame_history), dtype=torch.uint8, device=obs.device
+    )
+    stack[..., -1] = obs
+    return stack
+
+
+def create_fused_state(
+    seed: int,
+    model: BA3CNet,
+    cfg: BA3CConfig,
+    env,
+    n_envs: int,
+    optimizer: Optional[ClipAdam] = None,
+) -> FusedState:
+    """The fused state on the model's device: the train state over the
+    model's (seeded) params, ``n_envs`` fresh envs, and a draw source
+    seeded ``seed + 1`` (so it is not the params' stream)."""
+    dev = _param_device(model)
+    draws = device_draws(env, seed + 1, dev)
+    env_state = env.reset(draws.reset_noise(n_envs, dev))
+    return FusedState(
+        train=create_train_state(model, cfg, optimizer),
+        env_state=env_state,
+        obs_stack=initial_stack(env, env_state, cfg.frame_history),
+        draws=draws,
+        ep_return=torch.zeros(n_envs, dtype=torch.float32, device=dev),
+        ep_count=torch.zeros(n_envs, dtype=torch.int32, device=dev),
+        ep_return_sum=torch.zeros(n_envs, dtype=torch.float32, device=dev),
+    )
+
+
+def push_frame(stack, obs, done):
+    """Drop the oldest frame and append ``obs``; a done env's history is
+    zeroed so it does not leak into the new episode."""
+    keep = (~done).to(stack.dtype)[:, None, None, None]
+    return torch.cat([stack[..., 1:] * keep, obs[..., None]], dim=-1)
+
+
+def make_rollout_body(model: BA3CNet, cfg: BA3CConfig, env) -> Callable:
+    """One rollout step: ``body(carry) -> (carry, (stack, actions,
+    r_learn, donef))`` with ``carry = (env_state, stack, draws, ep_ret,
+    ep_cnt, ep_sum)``. Call it without gradients."""
+
+    def rollout_body(carry):
+        env_state, stack, draws, ep_ret, ep_cnt, ep_sum = carry
+        B = stack.shape[0]
+        out = model(stack)
+        g = draws.action_noise(out.logits.shape, stack.device)
+        actions = torch.argmax(out.logits + g, dim=-1).to(torch.int32)
+        env_state, obs, reward, done = env.step(
+            env_state, actions, draws.env_noise(B, stack.device)
+        )
+        new_stack = push_frame(stack, obs, done)
+        # episode bookkeeping (done => env auto-restarted inside step);
+        # scores accumulate RAW rewards, the learner sees clipped ones
+        ep_ret = ep_ret + reward
+        donef = done.to(torch.float32)
+        ep_sum = ep_sum + ep_ret * donef
+        ep_cnt = ep_cnt + done.to(torch.int32)
+        ep_ret = ep_ret * (1.0 - donef)
+        r_learn = (
+            torch.clamp(reward, -cfg.reward_clip, cfg.reward_clip)
+            if cfg.reward_clip
+            else reward
+        )
+        carry = (env_state, new_stack, draws, ep_ret, ep_cnt, ep_sum)
+        return carry, (stack, actions, r_learn, donef)
+
+    return rollout_body
+
+
+def n_grad_chunks(n: int, grad_chunk_samples: int) -> int:
+    """The fewest equal chunks of at most ``grad_chunk_samples`` (rounded
+    up until they divide ``n``), as the JAX step counts them."""
+    n_chunks = max(1, -(-n // grad_chunk_samples))
+    while n % n_chunks:
+        n_chunks += 1
+    return n_chunks
+
+
+def learner_grads(
+    model: BA3CNet,
+    cfg: BA3CConfig,
+    states: torch.Tensor,
+    actions: torch.Tensor,
+    returns: torch.Tensor,
+    entropy_beta: float,
+    grad_chunk_samples: int = 4096,
+) -> Tuple[List[torch.Tensor], A3CLossOut]:
+    """The a3c loss's gradients over a flat batch, in parameter order,
+    with the loss terms: the mean over equal chunks of at most
+    ``grad_chunk_samples`` (which equals the full-batch gradient)."""
+    params = list(model.parameters())
+    n_chunks = n_grad_chunks(states.shape[0], grad_chunk_samples)
+    grads, aux = None, None
+    for s, a, r in zip(
+        states.chunk(n_chunks), actions.chunk(n_chunks), returns.chunk(n_chunks)
+    ):
+        out = model(s)
+        loss = a3c_loss(
+            out.logits, out.value, a, r,
+            entropy_beta=entropy_beta,
+            value_loss_coef=cfg.value_loss_coef,
+            huber_delta=cfg.value_huber_delta,
+        )
+        g = torch.autograd.grad(loss.total, params)
+        terms = [t.detach() for t in loss]
+        if grads is None:
+            grads, aux = list(g), terms
+        else:
+            grads = [x + y for x, y in zip(grads, g)]
+            aux = [x + y for x, y in zip(aux, terms)]
+    if n_chunks > 1:
+        grads = [x / n_chunks for x in grads]
+        aux = [x / n_chunks for x in aux]
+    return grads, A3CLossOut(*aux)
+
+
+def make_fused_step(
+    model: BA3CNet,
+    optimizer: ClipAdam,
+    cfg: BA3CConfig,
+    env,
+    rollout_len: int = 20,
+    grad_chunk_samples: int = 4096,
+    steps_per_dispatch: int = 1,
+) -> Callable:
+    """Build ``fn(state, entropy_beta, learning_rate=None) -> (state,
+    metrics)``; the metrics are 0-dim tensors on the device.
+
+    ``optimizer`` must be the one over ``model``'s params (the state's
+    train.optimizer). ``steps_per_dispatch`` > 1 runs that many updates
+    per call, as the JAX step's ``lax.scan`` does.
+    """
+    rollout_body = make_rollout_body(model, cfg, env)
+
+    def local_step(state: FusedState, entropy_beta, learning_rate):
+        carry = (
+            state.env_state, state.obs_stack, state.draws,
+            state.ep_return, state.ep_count, state.ep_return_sum,
+        )
+        traj = []
+        with torch.no_grad():
+            for _ in range(rollout_len):
+                carry, ys = rollout_body(carry)
+                traj.append(ys)
+            env_state, stack, draws, ep_ret, ep_cnt, ep_sum = carry
+            states_t, actions_t, rewards_t, dones_t = (
+                torch.stack(x) for x in zip(*traj)
+            )  # [T, B, ...]
+            # bootstrap from the post-rollout stack (no gradient)
+            bootstrap = model(stack).value
+            returns_t = n_step_returns(rewards_t, dones_t, bootstrap, cfg.gamma)
+
+        T, B = actions_t.shape
+        flat = lambda x: x.reshape(T * B, *x.shape[2:])  # noqa: E731
+        grads, aux = learner_grads(
+            model, cfg, flat(states_t), flat(actions_t), flat(returns_t),
+            entropy_beta, grad_chunk_samples,
+        )
+        summaries = grad_summaries(grads)
+        optimizer.set_learning_rate(learning_rate)
+        optimizer.step(grads)
+
+        new_state = dataclasses.replace(
+            state,
+            train=dataclasses.replace(state.train, step=state.train.step + 1),
+            env_state=env_state,
+            obs_stack=stack,
+            draws=draws,
+            ep_return=ep_ret,
+            ep_count=ep_cnt,
+            ep_return_sum=ep_sum,
+        )
+        metrics = {
+            "loss": aux.total,
+            "policy_loss": aux.policy_loss,
+            "value_loss": aux.value_loss,
+            "entropy": aux.entropy,
+            "pred_value": aux.pred_value,
+            **summaries,
+            "reward_per_step": torch.mean(rewards_t),
+            "episodes": torch.sum(ep_cnt),
+            "episode_return_sum": torch.sum(ep_sum),
+        }
+        return new_state, metrics
+
+    def step(state: FusedState, entropy_beta, learning_rate=None):
+        if learning_rate is None:
+            learning_rate = cfg.learning_rate
+        window = []
+        for _ in range(steps_per_dispatch):
+            state, m = local_step(state, entropy_beta, learning_rate)
+            window.append(m)
+        if steps_per_dispatch == 1:
+            return state, window[0]
+        # cumulative-in-state metrics: the LAST step's value is "so far";
+        # loss-like metrics average over the dispatch window
+        return state, {
+            k: (
+                window[-1][k] if k in CUMULATIVE_METRICS
+                else torch.stack([m[k] for m in window]).float().mean()
+            )
+            for k in window[0]
+        }
+
+    def reset_episode_stats(state: FusedState) -> FusedState:
+        """Zero the per-env episode accumulators for the next epoch."""
+        return dataclasses.replace(
+            state,
+            ep_count=torch.zeros_like(state.ep_count),
+            ep_return_sum=torch.zeros_like(state.ep_return_sum),
+        )
+
+    step.steps_per_dispatch = steps_per_dispatch
+    step.reset_episode_stats = reset_episode_stats
+    return step
+
+
+def make_greedy_eval(
+    model: BA3CNet,
+    cfg: BA3CConfig,
+    env,
+    n_envs: int,
+    max_steps: int = 3000,
+) -> Callable:
+    """Build ``fn(seed) -> (mean_return, max_return, n_episodes)``: greedy
+    (argmax) episodes of ``n_envs`` fresh envs in lockstep for
+    ``max_steps`` steps on the model's device. Each env contributes its
+    FIRST completed episode, so long episodes do not lose weight to short
+    ones; an env with none contributes nothing."""
+
+    def evaluate(seed: int):
+        dev = _param_device(model)
+        draws = device_draws(env, seed, dev)
+        env_state = env.reset(draws.reset_noise(n_envs, dev))
+        stack = initial_stack(env, env_state, cfg.frame_history)
+        ep_ret = torch.zeros(n_envs, dtype=torch.float32, device=dev)
+        done_ret = torch.zeros_like(ep_ret)
+        done_mask = torch.zeros(n_envs, dtype=torch.bool, device=dev)
+        with torch.no_grad():
+            for _ in range(max_steps):
+                actions = torch.argmax(model(stack).logits, dim=-1)
+                env_state, obs, reward, done = env.step(
+                    env_state, actions.to(torch.int32),
+                    draws.env_noise(n_envs, dev),
+                )
+                ep_ret = ep_ret + reward
+                first_done = done & ~done_mask
+                done_ret = torch.where(first_done, ep_ret, done_ret)
+                done_mask = done_mask | done
+                ep_ret = ep_ret * (1.0 - done.to(torch.float32))
+                stack = push_frame(stack, obs, done)
+        n = int(done_mask.sum())
+        s = float(torch.where(done_mask, done_ret, 0.0).sum())
+        mx = float(torch.where(done_mask, done_ret, float("-inf")).max())
+        return s / max(n, 1), mx, n
+
+    return evaluate
+
+
+def run_fused_training(args, cfg: BA3CConfig) -> int:
+    """``--task train --trainer tpu_fused_ba3c`` (``--env jax:<name>``)."""
+    from distributed_ba3c_tpu_torch.envs import jaxenv
+    from distributed_ba3c_tpu_torch.train.callbacks import anneal_interp
+    from distributed_ba3c_tpu_torch.utils import logger
+    from distributed_ba3c_tpu_torch.utils.stats import StatHolder
+
+    if not args.env.startswith("jax:"):
+        raise SystemExit("--trainer=tpu_fused_ba3c requires --env jax:<name>")
+    env = jaxenv.get_env(args.env.split(":", 1)[1])
+    cfg = cfg.replace(num_actions=env.num_actions, image_size=env.obs_shape)
+    if args.steps_per_epoch % args.steps_per_dispatch:
+        raise SystemExit(
+            f"--steps_per_dispatch {args.steps_per_dispatch} must divide "
+            f"--steps_per_epoch {args.steps_per_epoch}"
+        )
+    model = BA3CNet(
+        num_actions=cfg.num_actions,
+        fc_units=cfg.fc_units,
+        image_size=cfg.image_size,
+        in_channels=cfg.state_shape[2],
+        conv_backend=args.conv_backend,
+        device=args.device,
+        generator=torch.Generator().manual_seed(args.seed),
+    )
+    rollout_len = args.rollout_len
+    n_envs = max(1, cfg.batch_size // rollout_len)
+    state = create_fused_state(args.seed, model, cfg, env, n_envs)
+    step = make_fused_step(
+        model, state.train.optimizer, cfg, env, rollout_len,
+        grad_chunk_samples=args.grad_chunk_samples,
+        steps_per_dispatch=args.steps_per_dispatch,
+    )
+    evaluate = make_greedy_eval(
+        model, cfg, env, max(args.nr_eval, 1), max_steps=args.eval_max_steps
+    )
+    holder = StatHolder(args.logdir)
+    logger.set_logger_dir(args.logdir)
+    samples_per_iter = n_envs * rollout_len
+    logger.info(
+        "fused training: %d envs x %d rollout = %d samples/iter on %s",
+        n_envs, rollout_len, samples_per_iter, _param_device(model),
+    )
+
+    # runtime-scheduled hyperparams: anneal over epochs when *_final is set
+    def sched(v0, v1, epoch, mode=None):
+        if v1 is None or args.max_epoch <= 1:
+            return v0
+        f = (epoch - 1) / (args.max_epoch - 1)
+        return anneal_interp(v0, v1, f, mode or args.anneal)
+
+    _fused_epoch_loop(
+        args, cfg, step, state, holder, samples_per_iter, sched, evaluate
+    )
+    return 0
+
+
+def _fused_epoch_loop(
+    args, cfg, step, state, holder, samples_per_iter, sched, evaluate
+) -> None:
+    import numpy as np
+
+    from distributed_ba3c_tpu_torch import telemetry
+    from distributed_ba3c_tpu_torch.utils import logger
+
+    tele = telemetry.registry("learner")
+    c_steps = tele.counter("train_steps_total")
+    c_samples = tele.counter("train_samples_total")
+    c_episodes = tele.counter("episodes_total")
+    h_epoch = tele.histogram("epoch_s", unit=1e-3)
+    for epoch in range(1, args.max_epoch + 1):
+        beta = sched(cfg.entropy_beta, args.entropy_beta_final, epoch, args.anneal_beta)
+        lr = sched(cfg.learning_rate, args.learning_rate_final, epoch, args.anneal_lr)
+        t0 = time.monotonic()
+        metrics: Dict[str, torch.Tensor] = {}
+        for _ in range(args.steps_per_epoch // step.steps_per_dispatch):
+            state, metrics = step(state, beta, lr)
+        # one device->host fetch per epoch
+        metrics = {k: float(v) for k, v in metrics.items()}
+        dt = time.monotonic() - t0
+        fps = args.steps_per_epoch * samples_per_iter / dt
+        c_steps.inc(args.steps_per_epoch)
+        c_samples.inc(args.steps_per_epoch * samples_per_iter)
+        c_episodes.inc(int(metrics["episodes"]))
+        h_epoch.observe(dt)
+        mean_ret = (
+            metrics["episode_return_sum"] / metrics["episodes"]
+            if metrics["episodes"] > 0
+            else float("nan")
+        )
+        state = step.reset_episode_stats(state)
+        # greedy eval: the number the north-star (Pong >= 18) is defined on
+        eval_mean = float("nan")
+        if epoch % max(args.eval_every, 1) == 0:
+            eval_mean, eval_max, eval_n = evaluate(1000 + epoch)
+            if eval_n > 0:
+                holder.add_stat("eval_mean_score", eval_mean)
+                holder.add_stat("eval_max_score", eval_max)
+            else:
+                # no episode finished inside the eval horizon: report nothing
+                eval_mean = float("nan")
+        holder.add_stat("epoch", epoch)
+        holder.add_stat("global_step", state.train.step)
+        holder.add_stat("fps", fps)
+        if np.isfinite(mean_ret):
+            holder.add_stat("mean_score", mean_ret)
+        if metrics["episodes"] > 0:
+            holder.add_stat(
+                "ep_len_approx",
+                args.steps_per_epoch * samples_per_iter / metrics["episodes"],
+            )
+        for k in ("loss", "policy_loss", "value_loss", "entropy", "grad_norm"):
+            holder.add_stat(k, metrics[k])
+        if telemetry.enabled():
+            holder.add_stats({
+                f"tele/learner/{k}": v for k, v in tele.scalars().items()
+            })
+        holder.finalize()
+        logger.info(
+            "epoch %d | env-steps/s %.0f | mean_score %.2f (%d eps) | eval %.2f | loss %.4f entropy %.3f",
+            epoch, fps, mean_ret, int(metrics["episodes"]), eval_mean,
+            metrics["loss"], metrics["entropy"],
+        )

@@ -19,6 +19,16 @@ and value heads. Each conv layer is one fused conv+bias+relu(+pool) block
 (the default on a CUDA device), ``"torch"`` its plain PyTorch version (the
 default on the CPU).
 
+The forward is differentiable on both backends, with the JAX model's
+``conv_backend="pallas"`` gradient rules: a block where ``supported``
+holds differentiates as JAX's ``reference_block`` (relu'(0) = 1/2, a tied
+pool window split evenly), every other block as flax's layers (relu'(0) =
+0, the pool gradient to the first maximum). On ``cuda`` the forward is the
+kernel and the backward recomputes the same plain block as on ``torch``
+(``conv_block``), so the CPU tests speak for the card. The f32 params take
+their gradients through the bf16 weight-prologue cast, as flax casts
+inside the layer.
+
 Parameters live in PyTorch's layouts: conv weights OIHW, dense weights
 ``[out, in]``. models/convert.py maps them to and from the flax tree.
 """
@@ -34,8 +44,10 @@ from torch import nn
 from distributed_ba3c_tpu_torch.models.layers import PReLU
 from distributed_ba3c_tpu_torch.ops.conv_block import (
     ConvSpec,
-    conv_block_fwd,
+    conv_block,
+    flax_block,
     reference_block,
+    supported,
 )
 from distributed_ba3c_tpu_torch.utils.device import resolve_device
 
@@ -162,10 +174,17 @@ class BA3CNet(nn.Module):
             w = conv.weight.to(cdt).permute(2, 3, 1, 0).contiguous()
             b = conv.bias.to(cdt)
             x = x.reshape(B, H, W * Ci)
-            if self.conv_backend == "cuda":
-                y = conv_block_fwd(x.contiguous(), w, b.contiguous(), s)
+            # JAX's model: the Pallas block (reference_block's VJP) where
+            # supported in bf16, flax's layers everywhere else
+            plain = (
+                reference_block
+                if cdt == torch.bfloat16 and supported(s)
+                else flax_block
+            )
+            if self.conv_backend == "torch":
+                y = plain(x, w, b, s, dtype=cdt)
             else:
-                y = reference_block(x, w, b, s, dtype=cdt)
+                y = conv_block(x.contiguous(), w, b.contiguous(), s, plain)
             x = y.reshape(B, s.Ho, s.Wo, feats)
 
         x = x.reshape(B, -1)

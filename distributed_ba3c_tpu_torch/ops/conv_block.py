@@ -11,6 +11,22 @@ with bf16 operands, f32 accumulation, the sum rounded to bf16 before the
 bf16 bias add, then relu, then the pool -- the op order ``nn.Conv`` +
 ``nn.relu`` + ``nn.max_pool`` give under XLA.
 
+Two plain versions compute that function and differ only in how they
+differentiate at ties, as the JAX model's two block paths do:
+
+- :func:`reference_block` is ``pallas_conv.py:reference_block``: relu as a
+  ``maximum`` with 0 (gradient 1/2 at 0) and a reshape-max pool (a tie
+  splits the gradient evenly). The JAX model takes it, through the custom
+  VJP ``conv_block``, for every block where :func:`supported` holds.
+- :func:`flax_block` is ``nn.Conv`` + ``nn.relu`` + ``nn.max_pool``:
+  gradient 0 at 0, and the whole pool gradient to the first maximum. The
+  JAX model takes it for every other block (conv0 at full width, every
+  block at narrow test widths).
+
+:func:`conv_block` is the trainable block, the port of ``conv_block``
+(``pallas_conv.py:335-359``): forward :func:`conv_block_fwd`, backward the
+VJP of a plain version recomputed from the saved inputs.
+
 Public layouts are the JAX package's: ``x`` is ``[B, H, W*Ci]`` (uint8 for a
 ``scale_uint8`` block, else bf16), ``w`` is HWIO ``[kh, kw, Ci, Co]``, ``b``
 is ``[Co]``, and the output is ``[B, Ho, Wo*Co]`` bf16.
@@ -28,6 +44,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+#: the Pallas kernel's lane-packing factor; only :func:`supported` reads it
+LANE_PACK = 4
 
 
 #: bf16(1/255) as a float: the scale of a uint8 block's input
@@ -95,18 +114,8 @@ def ba3c_specs(
     return tuple(specs)
 
 
-def reference_block(
-    x: torch.Tensor,
-    w: torch.Tensor,
-    b: torch.Tensor,
-    s: ConvSpec,
-    dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """x: [B, H, W*Ci] -> [B, Ho, Wo*Co], plain PyTorch ops, same op order.
-
-    ``dtype`` is the compute type: bf16 is the kernel's function; the
-    model's float32 path runs the same ops in float32.
-    """
+def _conv(x, w, s: ConvSpec, dtype) -> torch.Tensor:
+    """[B, H, W*Ci] -> the pre-bias conv output [B, Co, H, W] in ``dtype``."""
     B = x.shape[0]
     x = x.reshape(B, s.H, s.W, s.Ci)
     if s.scale_uint8:
@@ -117,14 +126,63 @@ def reference_block(
         x = x.to(dtype)
     x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
     x = F.pad(x, (s.pw, s.kw - 1 - s.pw, s.ph, s.kh - 1 - s.ph))
-    y = F.conv2d(x, w.to(dtype).permute(3, 2, 0, 1))  # HWIO -> OIHW
-    y = torch.clamp_min(y + b.to(dtype)[:, None, None], 0)
+    return F.conv2d(x, w.to(dtype).permute(3, 2, 0, 1))  # HWIO -> OIHW
+
+
+def _flatten(y: torch.Tensor, s: ConvSpec) -> torch.Tensor:
+    """[B, Co, Ho, Wo] -> [B, Ho, Wo*Co]."""
+    return y.permute(0, 2, 3, 1).reshape(y.shape[0], s.Ho, s.Wo * s.Co)
+
+
+def reference_block(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    s: ConvSpec,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """x: [B, H, W*Ci] -> [B, Ho, Wo*Co], plain PyTorch ops, same op order.
+
+    ``dtype`` is the compute type: bf16 is the kernel's function; the
+    model's float32 path runs the same ops in float32. Differentiates as
+    JAX's ``reference_block``: ``maximum(y + b, 0)`` gives 1/2 at a tie,
+    and ``amax`` splits a tied pool window evenly.
+    """
+    B = x.shape[0]
+    y = _conv(x, w, s, dtype)
+    zero = torch.zeros((), dtype=dtype, device=y.device)
+    y = torch.maximum(y + b.to(dtype)[:, None, None], zero)
     if s.pool:
         y = y[:, :, : 2 * s.Ho, : 2 * s.Wo].reshape(
             B, s.Co, s.Ho, 2, s.Wo, 2
         )
         y = y.amax(dim=5).amax(dim=3)
-    return y.permute(0, 2, 3, 1).reshape(B, s.Ho, s.Wo * s.Co)
+    return _flatten(y, s)
+
+
+def flax_block(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    s: ConvSpec,
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """The same function as :func:`reference_block`, differentiated as
+    flax's ``nn.Conv`` + ``nn.relu`` + ``nn.max_pool``: ``torch.relu`` has
+    gradient 0 at 0, and ``F.max_pool2d`` sends a window's gradient to its
+    first maximum."""
+    y = torch.relu(_conv(x, w, s, dtype) + b.to(dtype)[:, None, None])
+    if s.pool:
+        y = F.max_pool2d(y, 2)
+    return _flatten(y, s)
+
+
+def supported(s: ConvSpec) -> bool:
+    """``pallas_conv.py:supported``: the geometries the JAX model runs
+    through its Pallas block (and so differentiates by
+    :func:`reference_block`'s rules); every other block takes flax's."""
+    P = LANE_PACK
+    return (P * s.Ci) % 128 == 0 and s.kw <= P + 1 and P % 2 == 0
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: ConvSpec):
@@ -189,3 +247,50 @@ def conv_block_fwd(
 
 #: kernel launches since the count was last set to 0 (CPU calls not counted)
 conv_block_fwd.launches = 0
+
+
+class _ConvBlock(torch.autograd.Function):
+    """Forward: the kernel (:func:`conv_block_fwd`). Backward: the VJP of
+    ``plain`` recomputed from the saved ``(x, w, b)`` with the cotangent
+    cast to bf16, as ``pallas_conv.py:_cb_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, s, plain):
+        ctx.save_for_backward(x, w, b)
+        ctx.spec, ctx.plain = s, plain
+        return conv_block_fwd(x, w, b, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [
+                t.detach().requires_grad_(n) for t, n in zip((x, w, b), need)
+            ]
+            y = ctx.plain(*leaves, ctx.spec)
+            wanted = [t for t, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(y, wanted, g.to(torch.bfloat16)))
+        if g.device.type == "cuda":
+            conv_block.launches += 1
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
+def conv_block(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    s: ConvSpec,
+    plain=reference_block,
+) -> torch.Tensor:
+    """The trainable block: :func:`conv_block_fwd` forward, and backward
+    the VJP of ``plain`` (:func:`reference_block`, as JAX's ``conv_block``
+    does; the model passes :func:`flax_block` where :func:`supported` is
+    false). Takes what :func:`conv_block_fwd` takes; the gradients of x, w
+    and b have their shapes and dtypes. The backward launches no kernel:
+    JAX computes it outside Pallas, as a recompute of the plain block."""
+    return _ConvBlock.apply(x, w, b, s, plain)
+
+
+#: backward passes run on the card since the count was last set to 0
+conv_block.launches = 0

@@ -1,1 +1,2 @@
-"""Eval/play drivers (``eval.py``); the trainers are not ported yet."""
+"""Eval/play loops (``eval.py``) and hyperparameter schedules
+(``callbacks.py``); the fused trainer itself is ``fused/loop.py``."""

@@ -1,1 +1,1 @@
-"""Host-side utilities: logging, thread helpers, device selection."""
+"""Host-side utilities: logging, thread helpers, device selection, stats."""

@@ -1,0 +1,86 @@
+"""The port's command line: ``--task train`` with the fused trainer.
+
+The train command runs at a small shape on the CPU (``--device cpu``):
+full conv widths, ``--fc_units 16``, 2 envs x ``--rollout_len 3``, 2 steps
+x 2 epochs, a 5-step greedy eval. Without ``--device`` the command asks
+for the card and, where there is none, raises: it never carries on on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from distributed_ba3c_tpu_torch import cli
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = [
+    "--task", "train", "--trainer", "tpu_fused_ba3c", "--env", "jax:pong",
+    "--fc_units", "16", "--batch_size", "6", "--rollout_len", "3",
+    "--steps_per_epoch", "2", "--max_epoch", "2", "--eval_max_steps", "5",
+]
+
+
+def test_train_on_cpu_exits_0_and_writes_stat_json(tmp_path):
+    r = subprocess.run(
+        [sys.executable, "-m", "distributed_ba3c_tpu_torch", *SMALL,
+         "--device", "cpu", "--logdir", str(tmp_path)],
+        capture_output=True, text=True, timeout=240, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO),
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    stats = json.loads((tmp_path / "stat.json").read_text())
+    assert [s["epoch"] for s in stats] == [1.0, 2.0]
+    assert [s["global_step"] for s in stats] == [2.0, 4.0]
+    for s in stats:
+        for k in ("loss", "policy_loss", "value_loss", "entropy", "grad_norm", "fps"):
+            assert k in s and s[k] == s[k], k  # present and not NaN
+    assert stats[-1]["tele/learner/train_samples_total"] == 2 * 2 * 2 * 3
+    assert "fused training: 2 envs x 3 rollout" in r.stderr
+
+
+def test_train_without_device_raises_without_a_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([*SMALL, "--logdir", str(tmp_path)])
+    assert not (tmp_path / "stat.json").exists()
+
+
+@pytest.mark.parametrize("trainer", ["tpu_sync_ba3c", "tpu_vtrace_ba3c"])
+def test_unported_trainers_exit_with_their_roadmap_item(trainer, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--task", "train", "--trainer", trainer, "--env", "jax:pong",
+                  "--device", "cpu"])
+    assert e.value.code == 2
+    assert "queue A item 6" in capsys.readouterr().err
+
+
+def test_fused_trainer_needs_a_jax_env(tmp_path):
+    with pytest.raises(SystemExit, match="jax:<name>"):
+        cli.main(["--task", "train", "--trainer", "tpu_fused_ba3c", "--env", "fake",
+                  "--device", "cpu", "--logdir", str(tmp_path)])
+
+
+def test_steps_per_dispatch_must_divide_steps_per_epoch(tmp_path):
+    with pytest.raises(SystemExit, match="must divide"):
+        cli.main([*SMALL, "--steps_per_dispatch", "3", "--device", "cpu",
+                  "--logdir", str(tmp_path)])
+
+
+def test_parser_keeps_the_jax_flag_defaults():
+    from distributed_ba3c_tpu.cli import make_parser as jax_parser
+
+    port = vars(cli.make_parser().parse_args([]))
+    ref = vars(jax_parser().parse_args([]))
+    for k in ("steps_per_epoch", "max_epoch", "rollout_len", "grad_chunk_samples",
+              "steps_per_dispatch", "batch_size", "learning_rate",
+              "learning_rate_final", "entropy_beta", "entropy_beta_final",
+              "anneal", "anneal_lr", "anneal_beta", "eval_every",
+              "eval_max_steps", "seed", "logdir", "trainer"):
+        assert port[k] == ref[k], k

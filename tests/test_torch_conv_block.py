@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,8 +25,11 @@ from distributed_ba3c_tpu_torch.ops import _build
 from distributed_ba3c_tpu_torch.ops.conv_block import (
     ConvSpec,
     ba3c_specs,
+    conv_block,
     conv_block_fwd,
+    flax_block,
     reference_block,
+    supported,
 )
 
 REL_TOL = 2e-2
@@ -154,8 +158,6 @@ def test_plain_block_float32_path_matches_jax_float32():
     """The model's float32 compute path runs the same ops in float32."""
     s = CASES[3][1]
     x, w, b = _inputs(s, seed=4)
-    import jax
-
     y = jax.lax.conv_general_dilated(
         jnp.asarray(x).reshape(B, s.H, s.W, s.Ci), jnp.asarray(w), (1, 1),
         [(s.ph, s.kh - 1 - s.ph), (s.pw, s.kw - 1 - s.pw)],
@@ -250,3 +252,192 @@ def test_kernel_matches_plain_version_on_the_card(cuda, name, s):
     mag = torch.maximum(g.abs(), r.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     assert float(((g - r).abs() <= ulp).float().mean()) >= 0.999
+
+
+# -- the backward: the tie rules and the custom VJP ---------------------------
+
+
+def _tie_inputs(s: ConvSpec, seed: int, batch: int = B):
+    """Inputs with exact zeros, as Pong frames and zero biases give: the
+    image is 0 outside a band of rows and a few random pixels, and every
+    other bias is 0, so many pre-activations are exactly 0 (relu ties) and
+    many pool windows hold four equal values (pool ties)."""
+    rng = np.random.default_rng(seed)
+    x, w, b = _inputs(s, seed, batch)
+    keep = np.zeros((batch, s.H, s.W, 1), bool)
+    keep[:, s.H // 3 : s.H // 3 + 3] = True
+    keep |= rng.random(keep.shape) < 0.01
+    keep = np.broadcast_to(keep, (batch, s.H, s.W, s.Ci))
+    x = np.where(keep.reshape(x.shape), x, 0).astype(x.dtype)
+    b[::2] = 0.0
+    b[1::4] = np.abs(b[1::4])  # positive biases: four equal relu outputs
+    # a sparse +-1 cotangent: every partial sum of a bias gradient is then
+    # exact in bf16. XLA sums the bias gradient (the transpose of the bias
+    # broadcast) in bf16, ~10% off a dense normal cotangent's exact sum at
+    # these sizes; the port sums in f32 (PERF.md, "Findings")
+    g = rng.choice([-1.0, 1.0], (batch, s.Ho, s.Wo * s.Co))
+    g = (g * (rng.random(g.shape) < 0.1)).astype(np.float32)
+    return x, w, b, g
+
+
+def _count_ties(x, w, b, s: ConvSpec):
+    """(relu ties, tied pool windows) of the bf16 block on these inputs."""
+    tx, tw, tb = _torch_args(x, w, b)
+    with torch.no_grad():
+        from distributed_ba3c_tpu_torch.ops.conv_block import _conv
+
+        pre = _conv(tx, tw, s, torch.bfloat16) + tb[:, None, None]
+    relu_ties = int((pre == 0).sum())
+    if not s.pool:
+        return relu_ties, 0
+    y = pre.clamp_min(0)[:, :, : 2 * s.Ho, : 2 * s.Wo]
+    win = y.reshape(x.shape[0], s.Co, s.Ho, 2, s.Wo, 2)
+    top = win.amax(dim=(3, 5), keepdim=True)
+    return relu_ties, int(((win == top).sum(dim=(3, 5)) > 1).sum())
+
+
+def _jax_vjp(fn, x, w, b, g, s: ConvSpec):
+    jx = jnp.asarray(x) if s.scale_uint8 else jnp.asarray(x, jnp.bfloat16)
+    argnums = (1, 2) if s.scale_uint8 else (0, 1, 2)
+    args = [jx, jnp.asarray(w), jnp.asarray(b)]
+
+    def f(*diff):
+        full = list(args)
+        for i, a in zip(argnums, diff):
+            full[i] = a
+        return fn(*full)
+
+    _, vjp = jax.vjp(f, *[args[i] for i in argnums])
+    grads = vjp(jnp.asarray(g, jnp.bfloat16))
+    return {"xwb"[i]: np.asarray(gr, np.float32) for i, gr in zip(argnums, grads)}
+
+
+def _torch_vjp(fn, x, w, b, g, s: ConvSpec, param_dtype=torch.float32):
+    tx, _, _ = _torch_args(x, w, b)
+    tw = torch.from_numpy(w).to(param_dtype).requires_grad_(True)
+    tb = torch.from_numpy(b).to(param_dtype).requires_grad_(True)
+    leaves = {"w": tw, "b": tb}
+    if not s.scale_uint8:
+        tx.requires_grad_(True)
+        leaves["x"] = tx
+    y = fn(tx, tw, tb)
+    y.backward(torch.from_numpy(g).to(torch.bfloat16))
+    return {k: t.grad for k, t in leaves.items()}, leaves
+
+
+@pytest.mark.parametrize("name,s", CASES, ids=[c[0] for c in CASES])
+def test_plain_block_vjp_matches_jax_reference_at_ties(name, s):
+    """reference_block's VJP against jax.vjp of JAX's reference_block on
+    inputs full of exact zeros: relu ties take 1/2 of the cotangent and a
+    tied pool window splits it evenly, on both sides."""
+    x, w, b, g = _tie_inputs(s, seed=30 + len(name))
+    relu_ties, pool_ties = _count_ties(x, w, b, s)
+    assert relu_ties > 1000 and (pool_ties > 1000 or not s.pool), (relu_ties, pool_ties)
+    ref = _jax_vjp(
+        lambda xx, ww, bb: jconv.reference_block(xx, ww, bb, _jax_spec(s)),
+        x, w, b, g, s,
+    )
+    got, leaves = _torch_vjp(
+        lambda xx, ww, bb: reference_block(xx, ww, bb, s), x, w, b, g, s
+    )
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert got[k].shape == leaves[k].shape and got[k].dtype == leaves[k].dtype
+        assert _rel_err(got[k].float().numpy(), ref[k]) < REL_TOL, (name, k)
+
+
+@pytest.mark.parametrize(
+    "name,s", [c for c in CASES if supported(c[1])],
+    ids=[c[0] for c in CASES if supported(c[1])],
+)
+def test_conv_block_function_matches_jax_custom_vjp(name, s):
+    """Blocks 1-3: the port's conv_block Function (on the CPU its forward
+    is the plain version) against jax.vjp of JAX's conv_block custom VJP
+    with the Pallas forward in interpret mode."""
+    x, w, b, g = _tie_inputs(s, seed=40 + len(name))
+    js = _jax_spec(s)
+    out_j = jconv.conv_block(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b), js, True
+    )
+    ref = _jax_vjp(
+        lambda xx, ww, bb: jconv.conv_block(xx, ww, bb, js, True), x, w, b, g, s
+    )
+    tx, tw, tb = (t.requires_grad_(True) for t in _torch_args(x, w, b))
+    before = conv_block.launches
+    y = conv_block(tx, tw, tb, s)
+    assert _rel_err(y.detach().float().numpy(), np.asarray(out_j, np.float32)) < REL_TOL
+    y.backward(torch.from_numpy(g).to(torch.bfloat16))
+    assert conv_block.launches == before  # CPU backward: not counted
+    for k, t in zip("xwb", (tx, tw, tb)):
+        assert t.grad.shape == t.shape and t.grad.dtype == torch.bfloat16, k
+        assert _rel_err(t.grad.float().numpy(), ref[k]) < REL_TOL, (name, k)
+
+
+def test_conv_block_uint8_input_takes_no_gradient():
+    s = CASES[0][1]
+    x, w, b, g = _tie_inputs(s, seed=50)
+    tx, tw, tb = _torch_args(x, w, b)
+    tw.requires_grad_(True)
+    tb.requires_grad_(True)
+    conv_block(tx, tw, tb, s).backward(torch.from_numpy(g).to(torch.bfloat16))
+    assert tx.grad is None and tw.grad.shape == tw.shape and tb.grad.shape == tb.shape
+
+
+@pytest.mark.parametrize("name,s", CASES[1:2] + CASES[3:4], ids=["block0", "block2"])
+def test_flax_block_vjp_matches_flax_layers_at_ties(name, s):
+    """flax_block's VJP against nn.Conv + nn.relu + nn.max_pool's: relu
+    ties take no gradient and the first maximum of a window takes it all."""
+    import flax.linen as nn
+
+    x, w, b, g = _tie_inputs(s, seed=60 + len(name))
+
+    def flax_fn(xx, ww, bb):
+        xx = xx.reshape(B, s.H, s.W, s.Ci)
+        y = nn.Conv(s.Co, (s.kh, s.kw), padding="SAME", dtype=jnp.bfloat16).apply(
+            {"params": {"kernel": ww, "bias": bb}}, xx
+        )
+        y = nn.relu(y)
+        if s.pool:
+            y = nn.max_pool(y, (2, 2), strides=(2, 2))
+        return y.reshape(B, s.Ho, s.Wo * s.Co)
+
+    ref = _jax_vjp(flax_fn, x, w, b, g, s)
+    got, _ = _torch_vjp(lambda xx, ww, bb: flax_block(xx, ww, bb, s), x, w, b, g, s)
+    for k in ref:
+        assert _rel_err(got[k].float().numpy(), ref[k]) < REL_TOL, (name, k)
+    # the two tie rules really differ on these inputs
+    other, _ = _torch_vjp(lambda xx, ww, bb: reference_block(xx, ww, bb, s), x, w, b, g, s)
+    assert _rel_err(other["b"].float().numpy(), ref["b"]) > REL_TOL
+
+
+def test_supported_matches_the_jax_predicate():
+    for s in [c[1] for c in CASES] + list(ba3c_specs(conv_features=(8, 8, 16, 16))):
+        assert supported(s) == jconv.supported(_jax_spec(s)), s
+    assert [supported(s) for s in ba3c_specs()] == [False, True, True, True]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,s", CASES[1:], ids=[c[0] for c in CASES[1:]])
+def test_conv_block_vjp_on_the_card_matches_its_plain_block(cuda, name, s):
+    """On the card the Function's forward is the kernel (one launch) and
+    its backward the plain block's VJP (counted once): the output and the
+    gradients within the band of the plain block's on the same inputs."""
+    plain = reference_block if supported(s) else flax_block
+    x, w, b, g = _tie_inputs(s, seed=70 + len(name), batch=64)
+    tx, tw, tb = (t.to(cuda) for t in _torch_args(x, w, b))
+    gy = torch.from_numpy(g).to(torch.bfloat16).to(cuda)
+    outs = []
+    before = (conv_block_fwd.launches, conv_block.launches)
+    for fn in (lambda *a: conv_block(*a, s, plain), lambda *a: plain(*a, s)):
+        leaves = [t.detach().requires_grad_(True) for t in (tx, tw, tb)]
+        y = fn(*leaves)
+        y.backward(gy)
+        outs.append([y.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert (conv_block_fwd.launches, conv_block.launches) == (before[0] + 1, before[1] + 1)
+    (y, *grads), (y_ref, *grads_ref) = outs
+    assert float((y.float() - y_ref.float()).abs().max()) <= REL_TOL * float(y_ref.float().abs().max())
+    for a, r in zip(grads, grads_ref):
+        assert a.shape == r.shape and a.dtype == r.dtype
+        # the same recompute on the same inputs; cuDNN may sum in another order
+        assert float((a.float() - r.float()).abs().max()) <= REL_TOL * float(r.float().abs().max())

@@ -199,6 +199,123 @@ def test_constructor_validation(monkeypatch):
         BA3CNet(4)  # cuda by default, and no card: raises, never runs on CPU
 
 
+# -- gradients: the pallas model's rules, the port's both backends -------------
+
+GRAD_REL_L2 = 2e-2
+#: the conv biases' bound. Their gradient is the sum of a bf16 cotangent
+#: over B*H*W positions, which XLA takes in bf16 (the transpose of the bias
+#: broadcast) and the port in f32: JAX's own sum is several percent off
+#: the exact one at these sizes (test_jax_sums_a_bf16_bias_gradient_in_bf16)
+CONV_BIAS_REL_L2 = 0.1
+
+
+def _bound(leaf: str) -> float:
+    return CONV_BIAS_REL_L2 if "Conv_" in leaf and "bias" in leaf else GRAD_REL_L2
+
+
+def _assert_within_bounds(errs: dict) -> None:
+    assert all(e < _bound(k) for k, e in errs.items()), errs
+
+
+def pong_frames(n: int, seed: int = 0) -> np.ndarray:
+    """[n, 84, 84, 4] uint8 frame stacks of JAX Pong after a few random
+    steps: exact zeros everywhere but the walls, paddles and ball."""
+    from distributed_ba3c_tpu.envs.jaxenv import pong as jpong
+
+    key = jax.random.PRNGKey(seed)
+    state = jax.vmap(jpong.reset)(jax.random.split(key, n))
+    step = jax.jit(jax.vmap(jpong.step))
+    rng = np.random.default_rng(seed)
+    frames = []
+    for t in range(6):
+        key, k = jax.random.split(key)
+        a = jnp.asarray(rng.integers(0, 6, n), jnp.int32)
+        state, obs, _, _ = step(state, a, jax.random.split(k, n))
+        frames.append(np.asarray(obs))
+    return np.stack(frames[-4:], axis=-1)
+
+
+def _rel_l2_per_leaf(got: dict, ref: dict) -> dict:
+    """||d||_2 / max(||ref||_2, 1e-3 * ||all ref grads||_2) per flax leaf."""
+    flat_g = dict(jax.tree_util.tree_leaves_with_path(got))
+    flat_r = dict(jax.tree_util.tree_leaves_with_path(ref))
+    assert flat_g.keys() == flat_r.keys()
+    total = float(np.sqrt(sum(float(np.sum(np.square(v, dtype=np.float64))) for v in flat_r.values())))
+    out = {}
+    for k, r in flat_r.items():
+        g = np.asarray(flat_g[k], np.float64)
+        assert g.shape == r.shape, k
+        d = float(np.linalg.norm(g - np.asarray(r, np.float64)))
+        out[jax.tree_util.keystr(k)] = d / max(float(np.linalg.norm(r)), 1e-3 * total)
+    return out
+
+
+def _sq_loss_grads_port(net, x) -> dict:
+    out = net(torch.from_numpy(x))
+    (out.logits.square().sum() + out.value.square().sum()).backward()
+    grads = {k: p.grad for k, p in net.named_parameters()}
+    assert all(g is not None and g.dtype == torch.float32 for g in grads.values())
+    return to_flax(grads)
+
+
+def _sq_loss_grads_jax(model, params, x) -> dict:
+    def f(p):
+        out = model.apply({"params": p}, x)
+        return jnp.sum(jnp.square(out.logits)) + jnp.sum(jnp.square(out.value))
+
+    return jax.device_get(jax.jit(jax.grad(f))(params))
+
+
+@pytest.fixture(scope="module")
+def full_width_grads():
+    """jax.grad through BA3CNet(conv_backend="pallas") at full conv widths,
+    fc_units=16, on 4 Pong frame stacks (the Pallas blocks interpret)."""
+    model = JaxNet(num_actions=6, fc_units=16, conv_backend="pallas")
+    x = pong_frames(4)
+    params = jax.device_get(model.init(jax.random.PRNGKey(3), x[:1])["params"])
+    return params, x, _sq_loss_grads_jax(model, params, x)
+
+
+@pytest.mark.parametrize("conv_backend", ["torch", "cuda"])
+def test_full_width_gradients_match_jax_pallas_model(full_width_grads, conv_backend):
+    """Blocks 1-3 differentiate as JAX's reference_block (the custom VJP),
+    conv0 as flax's layers; on the CPU the 'cuda' backend runs the
+    conv_block Function around the kernel wrapper's plain version."""
+    params, x, ref = full_width_grads
+    assert float(np.mean(x == 0)) > 0.9  # Pong: mostly exact zeros
+    net = _port(6, 16, 84, params, conv_backend=conv_backend)
+    errs = _rel_l2_per_leaf(_sq_loss_grads_port(net, x), ref)
+    _assert_within_bounds(errs)
+
+
+def test_narrow_width_gradients_follow_flax_rules_in_every_block():
+    """conv_features (8, 8, 16, 16): no block is supported, so every block
+    takes flax's rules, in JAX's pallas model and in the port."""
+    feats = (8, 8, 16, 16)
+    model = JaxNet(num_actions=6, fc_units=16, conv_features=feats, conv_backend="pallas")
+    x = pong_frames(4, seed=1)
+    params = jax.device_get(model.init(jax.random.PRNGKey(4), x[:1])["params"])
+    ref = _sq_loss_grads_jax(model, params, x)
+    net = _port(6, 16, 84, params, conv_features=feats)
+    errs = _rel_l2_per_leaf(_sq_loss_grads_port(net, x), ref)
+    _assert_within_bounds(errs)
+
+
+def test_jax_sums_a_bf16_bias_gradient_in_bf16():
+    """Why the conv biases have their own bound: JAX's gradient of a bf16
+    bias add (the VJP of the broadcast) is a bf16 sum, several percent off
+    the exact sum of its bf16 cotangent; the port's is within 1e-2."""
+    g = np.random.default_rng(0).normal(0, 1, (4, 84, 84, 32)).astype(np.float32)
+    gb = jnp.asarray(g, jnp.bfloat16)
+    exact = np.asarray(gb, np.float64).sum(axis=(0, 1, 2))
+    _, vjp = jax.vjp(lambda b: jnp.zeros(g.shape, jnp.bfloat16) + b, jnp.zeros(32, jnp.bfloat16))
+    jax_err = np.linalg.norm(np.asarray(vjp(gb)[0], np.float64) - exact) / np.linalg.norm(exact)
+    tb = torch.zeros(32, dtype=torch.bfloat16, requires_grad=True)
+    (torch.zeros(g.shape, dtype=torch.bfloat16) + tb).backward(torch.from_numpy(g).to(torch.bfloat16))
+    port_err = np.linalg.norm(tb.grad.double().numpy() - exact) / np.linalg.norm(exact)
+    assert jax_err > 0.02 and port_err < 0.01, (jax_err, port_err)
+
+
 @pytest.mark.cuda
 def test_kernel_model_matches_plain_model_on_the_card(cuda):
     """BA3CNet through the CUDA kernel against BA3CNet through the plain
