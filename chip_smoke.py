@@ -2,6 +2,10 @@
 """Smoke test of the PyTorch/H100 port on one CUDA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``--parity`` only builds the kernels and holds each against its plain
+version, the first call to make after a kernel changes; ``--kernel-times
+1,128,256,2560`` also times every block at those batches and prints them
+as one JSON line, to compare two source trees in one call.)
 
 It builds every kernel of the port's paths from ``distributed_ba3c_tpu_torch``'s
 sources, holds each against its plain PyTorch version at the shapes the paths
@@ -21,7 +25,9 @@ error against the plain version, times and bound, and last
 ``{"ok": true, "device": {...}}``. Times are CUDA-event times on this card,
 after a warmup; the bound is the larger of the bytes the function must move
 over 3.35 TB/s and its bf16 operations over 989 TFLOP/s (H100 SXM data
-sheet, dense, at 700 W).
+sheet, dense, at 700 W). The operations are those of the pre-pool
+positions the output needs (``needed_flops``): a 2x2 pool of 21 rows drops
+the 21st, which the kernel never computes.
 """
 
 from __future__ import annotations
@@ -95,99 +101,137 @@ def phase_build():
         raise RuntimeError(f"make -C cpp failed:\n{out}")
     log(f"[build] kernels + native core built in {time.perf_counter() - t0:.2f} s")
     for line in _build.build_log("conv_block").splitlines():
-        if "registers" in line or "spill" in line:
+        # per instantiation: its name, registers, shared memory and spills
+        # (the dynamic shared memory is chosen at launch; see conv_block.cu)
+        if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
             log(f"[build] conv_block ptxas: {line.strip()}")
 
 
-def phase_kernels(dev):
-    """Each conv block geometry at B=256: the kernel against its plain
-    version on the same seeded inputs, and the times of kernel, plain
-    version and one library computation of the same function."""
-    import torch
-    import torch.nn.functional as F
+KERNEL_BATCHES = (1, 3, B, TRAIN_B)  # B=1 and 3 catch ragged-edge and tail faults
+TIMED_BATCHES = (B, TRAIN_B)
 
-    from distributed_ba3c_tpu_torch.ops.conv_block import (
-        ba3c_specs,
-        conv_block_fwd,
-        reference_block,
-    )
 
-    g = torch.Generator().manual_seed(0)
+def needed_flops(s) -> int:
+    """Multiply-adds (2 operations each) of the pre-pool positions one
+    sample's output needs: 2*Ho x 2*Wo when pooled (block 2's 21 x 21
+    conv feeds a 10 x 10 pool, so 20 x 20 of it), all H x W when not."""
+    u = 2 if s.pool else 1
+    return 2 * (s.Ho * u) * (s.Wo * u) * s.Co * s.kh * s.kw * s.Ci
+
+
+def kernel_cases():
+    """(name, spec) of every block geometry: block 0 as the frames take it
+    (uint8) and as the model path gives it (bf16 /255), then blocks 1-3."""
+    from distributed_ba3c_tpu_torch.ops.conv_block import ba3c_specs
+
     specs = ba3c_specs()
-    cases = [("block0_uint8", specs[0])] + [
+    return [("block0_uint8", specs[0])] + [
         (f"block{i}", dataclasses.replace(s, scale_uint8=False))
         for i, s in enumerate(specs)
     ]
-    frames = torch.randint(0, 256, (B, 84, 84 * 4), generator=g, dtype=torch.uint8)
-    x_bf16 = (frames.to(torch.bfloat16) / 255.0)
-    rows, prev = [], None
-    for name, s in cases:
-        w = (torch.randn((s.kh, s.kw, s.Ci, s.Co), generator=g) * 0.1).to(torch.bfloat16)
-        b = (torch.randn((s.Co,), generator=g) * 0.05).to(torch.bfloat16)
-        # block0 takes the frames (uint8, or bf16 /255 as on the model
-        # path); each later block takes the previous block's plain output
-        x = {"block0_uint8": frames, "block0": x_bf16}.get(name, prev)
-        x, w, b = x.to(dev), w.to(dev), b.to(dev)
-        got = conv_block_fwd(x, w, b, s)
-        ref = reference_block(x, w, b, s)
-        prev = ref
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        scale = float(ref.float().abs().max())
-        share = bf16_ulp_share(got, ref)
-        ok = err / max(scale, 1e-6) < REL_TOL and share >= ULP_SHARE
-        log(
-            f"[kernel] {name}: {s.H}x{s.W}x{s.Ci}->{s.Co} k{s.kh} pool={s.pool} "
-            f"max|d|={err:.6g} max|ref|={scale:.6g} rel={err / max(scale, 1e-6):.3e} "
-            f"within-1-ulp={share:.6f} {'ok' if ok else 'FAIL'}"
-        )
-        if not ok:
-            raise AssertionError(f"conv_block_fwd disagrees with reference_block on {name}")
 
-        # the library's computation of the same function: conv2d + relu +
-        # max_pool2d in bf16 on a channels-last NCHW view, timed here only
-        w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        x4 = x.reshape(B, s.H, s.W, s.Ci).permute(0, 3, 1, 2)
-        pad = (s.pw, s.kw - 1 - s.pw, s.ph, s.kh - 1 - s.ph)
-        inv255 = torch.tensor(1.0 / 255.0, dtype=torch.bfloat16, device=dev)
 
-        def library(x4=x4, w_oihw=w_oihw, b=b, s=s, pad=pad):
-            xi = x4.to(torch.bfloat16) * inv255 if s.scale_uint8 else x4
-            y = F.relu(F.conv2d(F.pad(xi, pad), w_oihw, b))
-            return F.max_pool2d(y, 2) if s.pool else y
+def phase_kernels(dev, batches=KERNEL_BATCHES, timed_batches=TIMED_BATCHES):
+    """Each conv block geometry at B in ``batches``: the kernel against its
+    plain version on the same seeded inputs; at B in ``timed_batches`` also
+    the times of kernel, plain version and one library computation of the
+    same function, with the achieved TFLOP/s and the share of the bound.
+    Returns {B: [row per block]} for the timed batches, and the largest
+    max|d| of every check."""
+    import torch
+    import torch.nn.functional as F
 
-        lib_out = library()
-        lib_err = float((lib_out.permute(0, 2, 3, 1).reshape(got.shape).float()
-                         - ref.float()).abs().max())
-        n_bytes = (x.numel() * x.element_size() + w.numel() * 2 + b.numel() * 2
-                   + got.numel() * 2)
-        n_ops = B * s.flops_per_sample
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / BF16_FLOPS_PER_S * 1e3
-        before = conv_block_fwd.launches
-        row = {
-            "block": name,
-            "shape": [B, s.H, s.W, s.Ci, s.Co, s.kh, int(s.pool)],
-            "max_abs_err": err,
-            "rel_err": err / max(scale, 1e-6),
-            "within_1_ulp": share,
-            "ms": time_ms(lambda: conv_block_fwd(x, w, b, s)),
-            "plain_ms": time_ms(lambda: reference_block(x, w, b, s)),
-            "library_ms": time_ms(library),
-            "library_max_abs_err": lib_err,
-            "bytes": n_bytes,
-            "ops": n_ops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        conv_block_fwd.launches = before  # comparison launches do not count
-        log(
-            f"[kernel] {name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']})"
-        )
-        rows.append(row)
-    return rows
+    from distributed_ba3c_tpu_torch.ops.conv_block import conv_block_fwd, reference_block
+
+    g = torch.Generator().manual_seed(0)
+    cases = kernel_cases()
+    params = [
+        ((torch.randn((s.kh, s.kw, s.Ci, s.Co), generator=g) * 0.1).to(torch.bfloat16).to(dev),
+         (torch.randn((s.Co,), generator=g) * 0.05).to(torch.bfloat16).to(dev))
+        for _, s in cases
+    ]
+    inv255 = torch.tensor(1.0 / 255.0, dtype=torch.bfloat16, device=dev)
+    out, worst = {}, 0.0
+    for nb in batches:
+        gd = torch.Generator(device=dev).manual_seed(nb)
+        frames = torch.randint(0, 256, (nb, 84, 84 * 4), generator=gd, device=dev,
+                               dtype=torch.uint8)
+        x_bf16 = frames.to(torch.bfloat16) / 255.0
+        rows, prev = [], None
+        for (name, s), (w, b) in zip(cases, params):
+            # block0 takes the frames (uint8, or bf16 /255 as on the model
+            # path); each later block takes the previous block's plain output
+            x = {"block0_uint8": frames, "block0": x_bf16}.get(name, prev)
+            got = conv_block_fwd(x, w, b, s)
+            ref = reference_block(x, w, b, s)
+            prev = ref
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            share = bf16_ulp_share(got, ref)
+            worst = max(worst, err)
+            ok = (got.shape == ref.shape and err / max(scale, 1e-6) < REL_TOL
+                  and share >= ULP_SHARE)
+            log(
+                f"[kernel] {name} B={nb}: {s.H}x{s.W}x{s.Ci}->{s.Co} k{s.kh} pool={s.pool} "
+                f"max|d|={err:.6g} max|ref|={scale:.6g} rel={err / max(scale, 1e-6):.3e} "
+                f"within-1-ulp={share:.6f} {'ok' if ok else 'FAIL'}"
+            )
+            if not ok:
+                raise AssertionError(
+                    f"conv_block_fwd disagrees with reference_block on {name} at B={nb}")
+            if nb not in timed_batches:
+                continue
+
+            # the library's computation of the same function: conv2d + relu +
+            # max_pool2d in bf16 on a channels-last NCHW view, timed here only
+            w_oihw = w.permute(3, 2, 0, 1).contiguous()
+            x4 = x.reshape(nb, s.H, s.W, s.Ci).permute(0, 3, 1, 2)
+            pad = (s.pw, s.kw - 1 - s.pw, s.ph, s.kh - 1 - s.ph)
+
+            def library(x4=x4, w_oihw=w_oihw, b=b, s=s, pad=pad):
+                xi = x4.to(torch.bfloat16) * inv255 if s.scale_uint8 else x4
+                y = F.relu(F.conv2d(F.pad(xi, pad), w_oihw, b))
+                return F.max_pool2d(y, 2) if s.pool else y
+
+            lib_out = library()
+            lib_err = float((lib_out.permute(0, 2, 3, 1).reshape(got.shape).float()
+                             - ref.float()).abs().max())
+            n_bytes = (x.numel() * x.element_size() + w.numel() * 2 + b.numel() * 2
+                       + got.numel() * 2)
+            n_ops = nb * needed_flops(s)
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = n_ops / BF16_FLOPS_PER_S * 1e3
+            before = conv_block_fwd.launches
+            iters = 20 if nb <= B else 5
+            row = {
+                "block": name,
+                "shape": [nb, s.H, s.W, s.Ci, s.Co, s.kh, int(s.pool)],
+                "max_abs_err": err,
+                "rel_err": err / max(scale, 1e-6),
+                "within_1_ulp": share,
+                "ms": time_ms(lambda: conv_block_fwd(x, w, b, s), iters=iters),
+                "plain_ms": time_ms(lambda: reference_block(x, w, b, s), iters=iters),
+                "library_ms": time_ms(library, iters=iters),
+                "library_max_abs_err": lib_err,
+                "bytes": n_bytes,
+                "ops": n_ops,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            }
+            conv_block_fwd.launches = before  # comparison launches do not count
+            row["tflops"] = n_ops / row["ms"] / 1e9
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            log(
+                f"[kernel] {name} B={nb}: kernel {row['ms']:.4f} ms "
+                f"({row['tflops']:.2f} TFLOP/s, {100 * row['bound_share']:.2f}% of bound), "
+                f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            )
+            rows.append(row)
+        if rows:
+            out[nb] = rows
+    return out, worst
 
 
 def pong_states(n_blocks: int, n_envs: int = 64, seed: int = 0):
@@ -463,7 +507,7 @@ def phase_vjp(dev, states):
         # it is computed
         n_bytes = 2 * (x.numel() + w.numel() + b.numel() + gy.numel()
                        + gy.numel() + w.numel() + b.numel() + x.numel() * x_grad)
-        n_ops = (2 + x_grad) * TRAIN_B * s.flops_per_sample
+        n_ops = (2 + x_grad) * TRAIN_B * needed_flops(s)
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / BF16_FLOPS_PER_S * 1e3
         row = {
@@ -631,8 +675,19 @@ def phase_train_step(dev):
                                     "conv_block_vjp": per_update[1]}, **parts}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
+    ap.add_argument("--parity", action="store_true",
+                    help="only build the kernels and hold each against its plain "
+                         "version (a new kernel's first call); prints no result")
+    ap.add_argument("--kernel-times", metavar="B,B,...",
+                    help="only build, hold every block against its plain version and "
+                         "time it at these batches; prints one JSON line, no result")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -653,7 +708,18 @@ def main() -> int:
         f"cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}; {card}")
 
     phase_build()
-    rows = phase_kernels(dev)
+    if args.parity:
+        phase_kernels(dev, timed_batches=())
+        log("[parity] every kernel agrees with its plain version; nothing was timed")
+        return 0
+    if args.kernel_times:
+        batches = tuple(int(b) for b in args.kernel_times.split(","))
+        rows_by_b, _ = phase_kernels(dev, batches=batches, timed_batches=batches)
+        log("[kernel-times] " + json.dumps({"root": ROOT, "ms": {
+            nb: {r["block"]: r["ms"] for r in rows} for nb, rows in rows_by_b.items()}}))
+        return 0
+    rows_by_b, kernel_err = phase_kernels(dev)
+    rows = rows_by_b[B]
     states, num_actions = pong_states(8)
     model, fwd = phase_model(dev, states)
 
@@ -707,7 +773,7 @@ def main() -> int:
         "replaces": "distributed_ba3c_tpu/ops/pallas_conv.py:252",
         "launches": sum(fwd_by_path.values()),
         "launches_by_path": fwd_by_path,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": kernel_err,
         "ms": sum(r["ms"] for r in path),
         "plain_ms": sum(r["plain_ms"] for r in path),
         "bound_ms": max(t_bytes, t_ops),
@@ -715,6 +781,8 @@ def main() -> int:
         "library_ms": sum(r["library_ms"] for r in path),
         "shapes": "the four blocks of one BA3CNet forward at B=256 (sums); per_block below",
         "per_block": rows,
+        f"per_block_b{TRAIN_B}": rows_by_b[TRAIN_B],
+        "parity_batches": list(KERNEL_BATCHES),
     }, {
         "name": "conv_block_vjp",
         "route": "cuda",

@@ -16,8 +16,10 @@ params, each cast to the compute type where it is used; the FC 512 as a
 ``torch.matmul`` in the compute type with its bias added after; f32 policy
 and value heads. Each conv layer is one fused conv+bias+relu(+pool) block
 (ops/conv_block.py): ``conv_backend="cuda"`` runs the hand-written kernel
-(the default on a CUDA device), ``"torch"`` its plain PyTorch version (the
-default on the CPU).
+(the default on a CUDA device; it has the four BA3C block geometries, at
+any image size, and the constructor refuses other conv widths, kernels or
+input channels), ``"torch"`` its plain PyTorch version (the default on the
+CPU).
 
 The forward is differentiable on both backends, with the JAX model's
 ``conv_backend="pallas"`` gradient rules: a block where ``supported``
@@ -46,6 +48,7 @@ from distributed_ba3c_tpu_torch.ops.conv_block import (
     ConvSpec,
     conv_block,
     flax_block,
+    kernel_instantiated,
     reference_block,
     supported,
 )
@@ -134,7 +137,16 @@ class BA3CNet(nn.Module):
         convs = []
         h, w = self.image_size
         ci = in_channels
-        for feats, k, pooled in conv_layout(self):
+        for i, (feats, k, pooled) in enumerate(conv_layout(self)):
+            s = ConvSpec(H=h, W=w, Ci=ci, Co=feats, kh=k, kw=k, pool=pooled,
+                         scale_uint8=False)
+            if conv_backend == "cuda" and not kernel_instantiated(s):
+                raise ValueError(
+                    f"conv_backend='cuda': conv block {i} ({k}x{k}, {ci} -> "
+                    f"{feats} channels, pool={pooled}) has no kernel "
+                    "(ops.conv_block.kernel_instantiated is false); use "
+                    "conv_backend='torch'"
+                )
             conv = nn.utils.skip_init(nn.Conv2d, ci, feats, k)
             _lecun_normal_(conv.weight, k * k * ci, generator)
             nn.init.zeros_(conv.bias)

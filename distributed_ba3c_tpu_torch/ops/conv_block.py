@@ -185,6 +185,23 @@ def supported(s: ConvSpec) -> bool:
     return (P * s.Ci) % 128 == 0 and s.kw <= P + 1 and P % 2 == 0
 
 
+#: the (kh, kw, Ci, Co, pool) geometries csrc/conv_block.cu instantiates
+#: (at any H and W), each with whether it also takes a uint8 input
+KERNEL_GEOMETRIES = {
+    (5, 5, 4, 32, True): True,
+    (5, 5, 32, 32, True): False,
+    (4, 4, 32, 64, True): False,
+    (3, 3, 64, 64, False): False,
+}
+
+
+def kernel_instantiated(s: ConvSpec) -> bool:
+    """Whether ``csrc/conv_block.cu`` has a kernel for ``s``: the four BA3C
+    block geometries at any H and W, uint8 input only for block 0's."""
+    uint8_ok = KERNEL_GEOMETRIES.get((s.kh, s.kw, s.Ci, s.Co, s.pool))
+    return uint8_ok is not None and (uint8_ok or not s.scale_uint8)
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, s: ConvSpec):
     if x.dtype != s.in_dtype:
         raise TypeError(f"x must be {s.in_dtype} for {s}, got {x.dtype}")
@@ -216,14 +233,21 @@ def conv_block_fwd(
     """Fused conv+bias+relu(+pool). x: [B, H, W*Ci] (uint8 for scale_uint8).
 
     On a CUDA tensor, launches ``csrc/conv_block.cu`` on the current stream
-    and counts the launch in ``conv_block_fwd.launches``; on a CPU tensor,
-    computes :func:`reference_block`. Any other device raises.
+    and counts the launch in ``conv_block_fwd.launches`` (a geometry where
+    :func:`kernel_instantiated` is false raises); on a CPU tensor, computes
+    :func:`reference_block`. Any other device raises.
     """
     _check(x, w, b, s)
     if x.device.type == "cpu":
         return reference_block(x, w, b, s)
     if x.device.type != "cuda":
         raise ValueError(f"conv_block_fwd runs on cuda or cpu, not {x.device}")
+    if not kernel_instantiated(s):
+        raise ValueError(
+            f"csrc/conv_block.cu has no kernel for {s} (kernel_instantiated "
+            f"is false; it takes (kh, kw, Ci, Co, pool) in "
+            f"{sorted(KERNEL_GEOMETRIES)})"
+        )
     from distributed_ba3c_tpu_torch.ops import _build
 
     lib = _build.load("conv_block")

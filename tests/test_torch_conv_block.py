@@ -26,8 +26,10 @@ from distributed_ba3c_tpu_torch.ops.conv_block import (
     ConvSpec,
     ba3c_specs,
     conv_block,
+    KERNEL_GEOMETRIES,
     conv_block_fwd,
     flax_block,
+    kernel_instantiated,
     reference_block,
     supported,
 )
@@ -236,6 +238,350 @@ def test_library_path_tracks_the_source(tmp_path, monkeypatch):
     assert _build.library_path("k") != first
 
 
+def _ulp_share(got: np.ndarray, ref: np.ndarray) -> float:
+    """Share of elements within one bf16 ulp of the larger magnitude."""
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(ref)), 2.0 ** -126)
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    return float(np.mean(np.abs(got - ref) <= ulp))
+
+
+def _bf16(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _im2col_block(x, w, b, s: ConvSpec) -> np.ndarray:
+    """The GEMM view csrc/conv_block.cu computes, as an explicit im2col.
+
+    M is the pre-pool positions the output needs (2*Ho x 2*Wo when pooled:
+    block 2's 21st row and column are never formed), K = kh*kw*Ci ordered
+    (ky, kx, ci) so that the flattened HWIO weight is the [K, Co] matrix,
+    and the input is zero-padded SAME (top/left (k-1)//2). For Ci = 4 K runs
+    by kernel rows: each row's kw*Ci values padded to 32 with zero weights,
+    the extra A values being the pixels to the right. Then the sum rounded
+    to bf16, the bias added in bf16, relu, and the 2x2 max."""
+    n = x.shape[0]
+    if s.scale_uint8:
+        inv255 = float(torch.tensor(1.0 / 255.0, dtype=torch.bfloat16))
+        x = _bf16(x.astype(np.float32) * inv255)
+    x = x.reshape(n, s.H, s.W, s.Ci).astype(np.float32)
+    mh, mw = (2 * s.Ho, 2 * s.Wo) if s.pool else (s.H, s.W)
+    row_mode = s.Ci % 16 != 0
+    krow = -(-s.kw * s.Ci // 16) * 16 if row_mode else s.kw * s.Ci
+    extra = -(-(krow - s.kw * s.Ci) // s.Ci) if row_mode else 0
+    xp = np.zeros((n, mh + s.kh - 1, mw + s.kw - 1 + extra, s.Ci), np.float32)
+    rows, cols = min(s.H, mh + s.kh - 1 - s.ph), min(s.W, mw + s.kw - 1 + extra - s.pw)
+    xp[:, s.ph : s.ph + rows, s.pw : s.pw + cols] = x[:, :rows, :cols]
+    wk = w.reshape(s.kh, s.kw * s.Ci, s.Co)  # the HWIO weight as [K, Co], K by rows
+    if row_mode:
+        wk = np.concatenate(
+            [wk, np.zeros((s.kh, krow - s.kw * s.Ci, s.Co), np.float32)], axis=1
+        )
+    cols_per_row = krow // s.Ci
+    patches = np.stack(
+        [
+            xp[:, ky : ky + mh, kx : kx + mw]
+            for ky in range(s.kh)
+            for kx in range(cols_per_row)
+        ],
+        axis=3,
+    ).reshape(n, mh, mw, s.kh * krow)
+    acc = patches.reshape(-1, s.kh * krow) @ wk.reshape(s.kh * krow, s.Co)
+    y = np.maximum(_bf16(_bf16(acc) + b), 0.0).reshape(n, mh, mw, s.Co)
+    if s.pool:
+        y = y.reshape(n, s.Ho, 2, s.Wo, 2, s.Co).max(axis=(2, 4))
+    return y.reshape(n, s.Ho, s.Wo * s.Co)
+
+
+@pytest.mark.parametrize("name,s", CASES, ids=[c[0] for c in CASES])
+def test_gemm_view_matches_both_references(name, s):
+    """The im2col product the kernel relies on (K = 100, 800, 512, 576;
+    block 0 padded per kernel row to 160) against the port's and JAX's
+    reference_block: rel < 2e-2 and >= 99.9% within one bf16 ulp."""
+    x, w, b = _inputs(s, seed=80 + len(name))
+    w, b = _bf16(w), _bf16(b)
+    got = _im2col_block(x, w, b, s)
+    ref_t = reference_block(*_torch_args(x, w, b), s).float().numpy()
+    jx = jnp.asarray(x) if s.scale_uint8 else jnp.asarray(x, jnp.bfloat16)
+    ref_j = np.asarray(
+        jconv.reference_block(jx, jnp.asarray(w), jnp.asarray(b), _jax_spec(s)),
+        np.float32,
+    )
+    for ref in (ref_t, ref_j):
+        assert got.shape == ref.shape == (B, s.Ho, s.Wo * s.Co)
+        assert _rel_err(got, ref) < REL_TOL, name
+        assert _ulp_share(got, ref) >= 0.999, name
+
+
+# -- the kernel's index math, emulated lane by lane ----------------------------
+#
+# A numpy mirror of csrc/conv_block.cu: Geom, load_halo, conv_chunk (the
+# ldmatrix lane addresses, the A/B fragments of mma.m16n8k16, the row-mode
+# 32-bit A loads) and the epilogue, over the same shared-memory layout. It
+# keeps the kernel's names, so an edit to the kernel's indexing is made here
+# too; the card then checks the kernel itself (chip_smoke.py, the cuda tests).
+# Shared memory is filled with NaN, so a read of a word the kernel never
+# writes (a channel pad, the pad slot of a split halo row) reaches the output.
+
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3
+
+
+class _Geom:
+    """conv_block.cu's ``Geom<KH, KW, CI, CO, POOL>``."""
+
+    def __init__(self, s: ConvSpec):
+        self.KH, self.KW, self.CI, self.CO, self.POOL = s.kh, s.kw, s.Ci, s.Co, s.pool
+        self.U = 2 if s.pool else 1
+        self.PH, self.PW = (s.kh - 1) // 2, (s.kw - 1) // 2
+        self.ROW = s.Ci % 16 != 0
+        self.KROW = (s.kw * s.Ci + 15) // 16 * 16
+        self.KP = s.kh * self.KROW if self.ROW else s.kh * s.kw * s.Ci
+        self.EXTRA = (self.KROW - s.kw * s.Ci + s.Ci - 1) // s.Ci if self.ROW else 0
+        self.SPLIT = s.pool and not self.ROW
+        self.CS = s.Ci if self.ROW else (s.Ci if (s.Ci // 8) % 2 else s.Ci + 8)
+        self.WS = s.Co if (s.Co // 8) % 2 else s.Co + 8
+        self.UPC = 8 if s.pool else 32
+        self.NJ = s.Co // 8
+
+    def halo_cols(self, W):
+        return W + self.KW - 1 + self.EXTRA
+
+    def halo_pitch(self, W):
+        """Slots per halo row: at least halo_cols, and equal to W/U mod 8."""
+        c = self.halo_cols(W)
+        return c + ((W // self.U - c) & 7)
+
+    def slot(self, hr, hc, pitch, plane):
+        """The slot of halo pixel (hr, hc). Split: the even rows, then the
+        odd ones from ``plane``; in a row, the even columns, then the odd
+        ones from (pitch + 1) // 2."""
+        if not self.SPLIT:
+            return hr * pitch + hc
+        return (hr & 1) * plane + (hr >> 1) * pitch + (hc & 1) * ((pitch + 1) >> 1) + (hc >> 1)
+
+
+def _ldsm(mem, addr, trans=False):
+    """ldmatrix.x4 (.trans): byte addresses per lane [n, 32] -> the four
+    registers of each lane as bf16 pairs [n, 32, 4, 2]."""
+    assert (addr % 16 == 0).all() and addr.min() >= 0
+    i = np.arange(4)[None, :, None]
+    e = np.arange(2)[None, None, :]
+    t, q = _T[:, None, None], (_LANE >> 2)[:, None, None]
+    if trans:  # lane T: rows 2t, 2t+1 of matrix i, column T // 4
+        return mem[addr[:, 8 * i + 2 * t + e] // 2 + q]
+    return mem[addr[:, 8 * i + q] // 2 + 2 * t + e]  # row T // 4, columns 2t, 2t+1
+
+
+def _mma(acc, a, b0, b1):
+    """acc [n, 32, 4] += A (16x16 from the lanes' a [n, 32, 4, 2]) times B
+    (16x8 from b0, b1 [n, 32, 2]), in the m16n8k16 fragment layouts."""
+    n = a.shape[0]
+    A = np.zeros((n, 16, 16))
+    Bm = np.zeros((n, 16, 8))
+    for i, (ro, ko) in enumerate([(0, 0), (8, 0), (0, 8), (8, 8)]):
+        for e in range(2):
+            A[:, _G + ro, 2 * _T + ko + e] = a[:, :, i, e]
+    for e in range(2):
+        Bm[:, 2 * _T + e, _G] = b0[:, :, e]
+        Bm[:, 2 * _T + 8 + e, _G] = b1[:, :, e]
+    D = A @ Bm
+    acc[:, :, 0:2] += D[:, _G[:, None], 2 * _T[:, None] + np.arange(2)]
+    acc[:, :, 2:4] += D[:, _G[:, None] + 8, 2 * _T[:, None] + np.arange(2)]
+
+
+def _a_pos(G, u0, units, WO, pitch, plane, f, row, par):
+    """conv_chunk's ``pos``: the halo slot of A row ``row`` (0-15) of m
+    fragment f at tap (0, par), for a whole row of chunks u0 at once."""
+    if G.POOL:
+        u = u0[:, None] + (row & 7)
+    else:
+        u = u0[:, None] + f * 16 + row
+    u = np.where(u >= units, u0[:, None], u)
+    uy, ux = u // WO, u % WO
+    if G.POOL:
+        return G.slot(2 * uy + f, 2 * ux + (row >> 3) + par, pitch, plane)
+    return G.slot(uy, ux, pitch, plane)
+
+
+def _emulate_kernel(x, w, b, s: ConvSpec, R: int) -> np.ndarray:
+    """conv_block_kernel with band height R, item by item; x as the kernel
+    reads it (uint8 or bf16 values), w and b bf16 values."""
+    G = _Geom(s)
+    n, H, W = x.shape[0], s.H, s.W
+    HO, WO = H // G.U, W // G.U
+    NB = -(-HO // R)
+    hwc, pitch = G.halo_cols(W), G.halo_pitch(W)
+    scale = float(torch.tensor(1.0 / 255.0, dtype=torch.bfloat16))
+    ws = np.full(G.KP * G.WS, np.nan)
+    wf = w.reshape(-1, G.CO)
+    for kp in range(G.KP):  # row mode pads each kernel row with zeros
+        src, valid = kp, True
+        if G.ROW:
+            ky, j = divmod(kp, G.KROW)
+            valid = j < G.KW * G.CI
+            src = ky * G.KW * G.CI + j if valid else 0
+        ws[kp * G.WS: kp * G.WS + G.CO] = wf[src] if valid else 0.0
+    bw = (((_LANE & 7) + ((_LANE >> 3) & 1) * 8) * G.WS + (_LANE >> 4) * 8) * 2
+    y = np.full((n, HO * WO, G.CO), np.nan)
+    for item in range(n * NB):
+        bi, r0 = item // NB, (item % NB) * R
+        rows = min(R, HO - r0)
+        units = rows * WO
+        nrows = rows * G.U + G.KH - 1
+        # load_halo: rows r0*U - PH .., columns -PW .., zero outside
+        hs = np.full(nrows * pitch * G.CS, np.nan)
+        plane = ((nrows + 1) >> 1) * pitch
+        xs = x[bi].reshape(H, W, G.CI).astype(np.float64)
+        if s.scale_uint8:
+            xs = _bf16(xs * scale)
+        for hr in range(nrows):
+            iy = r0 * G.U - G.PH + hr
+            for hc in range(hwc):
+                ix = hc - G.PW
+                inside = 0 <= iy < H and 0 <= ix < W
+                p = G.slot(hr, hc, pitch, plane)
+                hs[p * G.CS: p * G.CS + G.CI] = xs[iy, ix] if inside else 0.0
+        # conv_chunk for every chunk of the band at once
+        u0 = np.arange(0, units, G.UPC)
+        acc = np.zeros((2, G.NJ, len(u0), 32, 4))
+        steps = []  # (A fragments of f = 0, 1; k0)
+        if not G.ROW:
+            # a[f][par]: tap (0, par) of fragment f. Split, tap (ky, kx) of
+            # f is a[(f + ky) & 1][kx & 1] plus (f + ky) >> 1 rows and
+            # kx >> 1 slots; else a[f][0] plus ky rows and kx slots
+            row, ch = _LANE & 15, (_LANE >> 4) * 8
+            a = [[(_a_pos(G, u0, units, WO, pitch, plane, f, row,
+                          par if G.SPLIT else 0) * G.CS + ch) * 2
+                  for par in range(2)] for f in range(2)]
+            for ky in range(G.KH):
+                for kx in range(G.KW):
+                    for c in range(G.CI // 16):
+                        fa = []
+                        for f in range(2):
+                            q = f + ky
+                            at = (a[q & 1][kx & 1] + ((q >> 1) * pitch + (kx >> 1)) * G.CS * 2
+                                  if G.SPLIT else a[f][0] + (ky * pitch + kx) * G.CS * 2)
+                            fa.append(_ldsm(hs, at + c * 32))
+                        steps.append((fa, (ky * G.KW + kx) * G.CI + c * 16))
+        else:
+            p = [[_a_pos(G, u0, units, WO, pitch, plane, f, _G + 8 * h, 0) * G.CS + 2 * _T
+                  for h in range(2)] for f in range(2)]
+            for ky in range(G.KH):
+                for kk in range(G.KROW // 16):
+                    eo = ky * pitch * G.CS + kk * 16
+                    fa = []
+                    for f in range(2):
+                        r = np.empty((len(u0), 32, 4, 2))
+                        for i, (h, o) in enumerate([(0, 0), (1, 0), (0, 8), (1, 8)]):
+                            idx = p[f][h] + eo + o
+                            assert idx.min() >= 0
+                            r[:, :, i, 0], r[:, :, i, 1] = hs[idx], hs[idx + 1]
+                        fa.append(r)
+                    steps.append((fa, ky * G.KROW + kk * 16))
+        for fa, k0 in steps:
+            for jj in range(G.NJ // 2):
+                fb = _ldsm(ws, (bw + (k0 * G.WS + jj * 16) * 2)[None], trans=True)
+                fb = np.broadcast_to(fb, (len(u0),) + fb.shape[1:])
+                for f in range(2):
+                    _mma(acc[f, 2 * jj], fa[f], fb[:, :, 0], fb[:, :, 1])
+                    _mma(acc[f, 2 * jj + 1], fa[f], fb[:, :, 2], fb[:, :, 3])
+        # the epilogue: round, bias, relu, the 2x2 max; masked stores
+        act = lambda v, bias: np.maximum(_bf16(_bf16(v) + bias), 0.0)
+        yb = y[bi, r0 * WO:]
+        for j in range(G.NJ):
+            co = 8 * j + 2 * _T
+            bias = np.stack([b[co], b[co + 1]], axis=-1)  # [32, 2]
+            if G.POOL:
+                m = np.zeros((len(u0), 32, 2))
+                for f in range(2):
+                    for h in range(2):
+                        m = np.maximum(m, act(acc[f, j, :, :, 2 * h: 2 * h + 2], bias))
+                u = u0[:, None] + _G
+                ok = u < units
+                yb[u[ok], co[None].repeat(len(u0), 0)[ok]] = m[ok][:, 0]
+                yb[u[ok], co[None].repeat(len(u0), 0)[ok] + 1] = m[ok][:, 1]
+            else:
+                for f in range(2):
+                    for h in range(2):
+                        v = act(acc[f, j, :, :, 2 * h: 2 * h + 2], bias)
+                        u = u0[:, None] + f * 16 + h * 8 + _G
+                        ok = u < units
+                        cols = co[None].repeat(len(u0), 0)[ok]
+                        yb[u[ok], cols] = v[ok][:, 0]
+                        yb[u[ok], cols + 1] = v[ok][:, 1]
+    return y.reshape(n, HO, WO * G.CO)
+
+
+#: small frames per case, each with band heights that leave a ragged last
+#: band, a band of one row, and chunks that wrap an output row
+_EMULATED = [
+    ("block0_uint8", 12, (1, 4)),
+    ("block0", 10, (2,)),
+    ("block1", 10, (2, 5)),
+    ("block2", 9, (3,)),  # 9 -> 4: the 9th row and column are never formed
+    ("block3", 7, (3, 7)),
+]
+
+
+@pytest.mark.parametrize(
+    "name,size,R", [(n, hw, r) for n, hw, rs in _EMULATED for r in rs],
+    ids=[f"{n}-{hw}-R{r}" for n, hw, rs in _EMULATED for r in rs],
+)
+def test_kernel_index_math_emulated_matches_reference(name, size, R):
+    """The lane-level emulation of csrc/conv_block.cu against the port's
+    reference_block at B=3: rel < 2e-2 and >= 99.9% within one bf16 ulp,
+    every output written, no uninitialised shared memory read."""
+    s = dataclasses.replace(dict(CASES)[name], H=size, W=size)
+    x, w, b = _inputs(s, seed=90 + size + R, batch=3)
+    w, b = _bf16(w), _bf16(b)
+    got = _emulate_kernel(x, w, b, s, R)
+    ref = reference_block(*_torch_args(x, w, b), s).float().numpy()
+    assert not np.isnan(got).any(), name
+    assert got.shape == ref.shape
+    assert _rel_err(got, ref) < REL_TOL, name
+    assert _ulp_share(got, ref) >= 0.999, name
+
+
+def _wavefronts(addr, width: int) -> np.ndarray:
+    """Shared-memory wavefronts of each access of ``128 // width`` lanes
+    reading ``width`` bytes each (an ldmatrix phase: 8 rows of 16 bytes; a
+    32-bit load: 32 words): the most distinct such words on one bank."""
+    rows = addr.reshape(-1, 128 // width)
+    return np.array([np.bincount((np.unique(r) % 128) // width).max() for r in rows])
+
+
+@pytest.mark.parametrize("name,s", CASES[1:], ids=[c[0] for c in CASES[1:]])
+def test_kernel_shared_loads_fall_on_distinct_banks(name, s):
+    """At full frame size, over a whole sample's chunks, every A and B
+    shared-memory load of the kernel is one wavefront: no bank conflicts.
+    The halo layout does it: a pooled window's 2-pixel stride would put two
+    of an ldmatrix's 8 rows on one bank group, so the halo is split by row
+    and column parity, and the row pitch is WO mod 8, so that a chunk that
+    wraps to the next output row continues its bank sequence (the linear
+    layout averaged 1.14, 2.25, 2.31 and 1.44 wavefronts on blocks 0-3)."""
+    G = _Geom(s)
+    HO, WO = s.H // G.U, s.W // G.U
+    pitch = G.halo_pitch(s.W)
+    plane = ((HO * G.U + G.KH) >> 1) * pitch  # one band of the whole sample
+    u0 = np.arange(0, HO * WO, G.UPC)
+    if G.ROW:
+        for f in range(2):
+            for h in range(2):
+                p = _a_pos(G, u0, HO * WO, WO, pitch, plane, f, _G + 8 * h, 0) * G.CS + 2 * _T
+                for o in (0, 8):
+                    assert (_wavefronts((p + o) * 2, 4) == 1).all()
+    else:
+        row, ch = _LANE & 15, (_LANE >> 4) * 8
+        waves = np.concatenate([
+            _wavefronts((_a_pos(G, u0, HO * WO, WO, pitch, plane, f, row, par) * G.CS + ch) * 2, 16)
+            for f in range(2) for par in range(2 if G.SPLIT else 1)
+        ])
+        assert (waves == 1).all(), (name, waves.mean())
+    bw = (((_LANE & 7) + ((_LANE >> 3) & 1) * 8) * G.WS + (_LANE >> 4) * 8) * 2
+    for k0 in range(0, G.KP, 16):
+        assert (_wavefronts(bw + k0 * G.WS * 2, 16) == 1).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,s", CASES, ids=[c[0] for c in CASES])
 def test_kernel_matches_plain_version_on_the_card(cuda, name, s):
@@ -408,6 +754,30 @@ def test_flax_block_vjp_matches_flax_layers_at_ties(name, s):
     # the two tie rules really differ on these inputs
     other, _ = _torch_vjp(lambda xx, ww, bb: reference_block(xx, ww, bb, s), x, w, b, g, s)
     assert _rel_err(other["b"].float().numpy(), ref["b"]) > REL_TOL
+
+
+def test_kernel_geometries_are_those_the_entry_point_instantiates():
+    """KERNEL_GEOMETRIES names exactly the (kh, kw, Ci, Co, pool) cases
+    ba3c_conv_block_fwd dispatches (square kernels), uint8 where it takes
+    it; every BA3C block is among them, at any frame size, and others not."""
+    import os
+    import re
+
+    with open(os.path.join(_build.CSRC, "conv_block.cu")) as fh:
+        src = fh.read()
+    cases = re.findall(r"if \(is\((\d+), (\d+), (\d+), (true|false)\)\)(.*)", src)
+    found = {(int(k), int(k), int(ci), int(co), p == "true"): "uint8_t" in rest
+             for k, ci, co, p, rest in cases}
+    # block 0's case opens a brace; its uint8 launch is on the next lines
+    body = src[src.index("if (is(5, 4, 32, true))"):src.index("if (x_uint8) return")]
+    found[(5, 5, 4, 32, True)] = "uint8_t" in body
+    assert found == KERNEL_GEOMETRIES
+    for size in (7, 16, 84, 96):
+        assert all(kernel_instantiated(dataclasses.replace(s, H=size, W=size)) for _, s in CASES)
+    narrow = ba3c_specs(conv_features=(8, 8, 16, 16))
+    assert not any(kernel_instantiated(s) for s in narrow)
+    assert not kernel_instantiated(ba3c_specs(frame_history=3)[0])
+    assert not kernel_instantiated(dataclasses.replace(CASES[2][1], scale_uint8=True))
 
 
 def test_supported_matches_the_jax_predicate():

@@ -188,6 +188,26 @@ def test_prelu_matches_jax_in_bf16():
     np.testing.assert_array_equal(got.float().numpy(), ref)
 
 
+@pytest.mark.parametrize(
+    "kwargs",
+    [dict(conv_features=(8, 8, 16, 16)), dict(in_channels=3), dict(conv_kernels=(5, 5, 3, 3)),
+     dict(pooled_layers=(True, True, False, False))],
+    ids=["narrow", "in_channels", "kernels", "pooling"],
+)
+def test_cuda_backend_refuses_a_geometry_without_a_kernel(kwargs):
+    """conv_backend='cuda' takes only what csrc/conv_block.cu instantiates
+    (ops.conv_block.kernel_instantiated), and says so at construction, not
+    at the first forward on the card; 'torch' takes any geometry."""
+    with pytest.raises(ValueError, match="kernel_instantiated"):
+        BA3CNet(6, device="cpu", conv_backend="cuda", **kwargs)
+    net = BA3CNet(6, fc_units=16, device="cpu", conv_backend="torch", **kwargs)
+    with torch.no_grad():
+        out = net(torch.zeros((1, 84, 84, net.in_channels), dtype=torch.uint8))
+    assert out.logits.shape == (1, 6)
+    for size in (16, 84, 96):  # the BA3C blocks at any frame size
+        BA3CNet(6, fc_units=16, image_size=(size, size), device="cpu", conv_backend="cuda")
+
+
 def test_constructor_validation(monkeypatch):
     with pytest.raises(ValueError, match="conv_backend"):
         BA3CNet(4, device="cpu", conv_backend="xla")
