@@ -3,20 +3,24 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--parity`` only builds the kernels and holds each against its plain
-version, the first call to make after a kernel changes; ``--kernel-times
-1,128,256,2560`` also times every block at those batches and prints them
-as one JSON line, to compare two source trees in one call.)
+version, forward and backward, the first call to make after a kernel
+changes; ``--kernel-times 1,128,256,2560`` also times every block's
+forward and backward kernels at those batches and prints them as one JSON
+line, to compare two source trees in one call.)
 
 It builds every kernel of the port's paths from ``distributed_ba3c_tpu_torch``'s
-sources, holds each against its plain PyTorch version at the shapes the paths
-give it, then drives the paths through the entry points a user calls:
-``BA3CNet`` at full width (84x84x4 uint8 frames, convs 32/32/64/64, FC 512,
-6 actions, seeded random weights) on native Pong frames, ``BatchedPredictor``
-serving block and single-row requests, ``python -m
-distributed_ba3c_tpu_torch --task play``, and ``--task train --trainer
-tpu_fused_ba3c --env jax:pong`` (128 envs x 20 steps per update, the learner
-through the conv-block kernel and its custom VJP). Every phase must pass;
-any failure exits nonzero and prints no result.
+sources (``csrc/conv_block.cu``, the forward; ``csrc/conv_block_bwd.cu``, the
+backward's route, dgrad and wgrad), holds each against its plain PyTorch
+version at the shapes the paths give it (the backward per block on tie and
+random inputs at B = 1, 3 and 2560, and twice for bit-equal gradients), then
+drives the paths through the entry points a user calls: ``BA3CNet`` at full
+width (84x84x4 uint8 frames, convs 32/32/64/64, FC 512, 6 actions, seeded
+random weights) on native Pong frames, ``BatchedPredictor`` serving block and
+single-row requests, ``python -m distributed_ba3c_tpu_torch --task play``,
+and ``--task train --trainer tpu_fused_ba3c --env jax:pong`` (128 envs x 20
+steps per update, the learner through the conv-block kernels forward and
+backward). Every phase must pass; any failure exits nonzero and prints no
+result.
 
 The last lines of standard output are: the card's name and power limit (as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
@@ -58,10 +62,15 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call of ``fn`` between two CUDA events. The queue is
+    drained first: work still queued (a learner's backward) would let the
+    host enqueue every timed call ahead of the card, and host-bound calls
+    would read as their device time alone."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -94,20 +103,24 @@ def phase_build():
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     try:
-        _build.build_all(["conv_block"])
+        _build.build_all(KERNEL_SOURCES)
     finally:
         out, _ = make.communicate()
     if make.returncode != 0:
         raise RuntimeError(f"make -C cpp failed:\n{out}")
     log(f"[build] kernels + native core built in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log("conv_block").splitlines():
-        # per instantiation: its name, registers, shared memory and spills
-        # (the dynamic shared memory is chosen at launch; see conv_block.cu)
-        if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
-            log(f"[build] conv_block ptxas: {line.strip()}")
+    for name in KERNEL_SOURCES:
+        for line in _build.build_log(name).splitlines():
+            # per instantiation: its name, registers, shared memory and
+            # spills (the dynamic shared memory is chosen at launch)
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "smem")):
+                log(f"[build] {name} ptxas: {line.strip()}")
 
 
+KERNEL_SOURCES = ("conv_block", "conv_block_bwd")
 KERNEL_BATCHES = (1, 3, B, TRAIN_B)  # B=1 and 3 catch ragged-edge and tail faults
+BWD_BATCHES = (1, 3, TRAIN_B)
+DZ_MISMATCH = 1e-3  # share of dz elements the route may route otherwise than cuDNN's z
 TIMED_BATCHES = (B, TRAIN_B)
 
 
@@ -200,8 +213,6 @@ def phase_kernels(dev, batches=KERNEL_BATCHES, timed_batches=TIMED_BATCHES):
             n_bytes = (x.numel() * x.element_size() + w.numel() * 2 + b.numel() * 2
                        + got.numel() * 2)
             n_ops = nb * needed_flops(s)
-            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            t_ops = n_ops / BF16_FLOPS_PER_S * 1e3
             before = conv_block_fwd.launches
             iters = 20 if nb <= B else 5
             row = {
@@ -214,10 +225,7 @@ def phase_kernels(dev, batches=KERNEL_BATCHES, timed_batches=TIMED_BATCHES):
                 "plain_ms": time_ms(lambda: reference_block(x, w, b, s), iters=iters),
                 "library_ms": time_ms(library, iters=iters),
                 "library_max_abs_err": lib_err,
-                "bytes": n_bytes,
-                "ops": n_ops,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                **bound(n_bytes, n_ops),
             }
             conv_block_fwd.launches = before  # comparison launches do not count
             row["tflops"] = n_ops / row["ms"] / 1e9
@@ -232,6 +240,149 @@ def phase_kernels(dev, batches=KERNEL_BATCHES, timed_batches=TIMED_BATCHES):
         if rows:
             out[nb] = rows
     return out, worst
+
+
+def bwd_inputs(s, nb, kind, dev, seed):
+    """Seeded inputs of one block's backward: x, w, b and the cotangent g.
+    ``ties``: frames that are 0 outside a band of rows and a few pixels,
+    every other bias 0 and the rest positive, a sparse +-1 cotangent; many
+    pre-activations are then exactly 0 and many windows tied, where the
+    two tie rules differ. ``random``: |N(0, 0.5)| inputs, normal biases and
+    cotangent."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((nb, s.H, s.W, s.Ci), generator=g).abs() * 0.5
+    w = torch.randn((s.kh, s.kw, s.Ci, s.Co), generator=g) * 0.1
+    b = torch.randn((s.Co,), generator=g) * 0.05
+    gy = torch.randn((nb, s.Ho, s.Wo * s.Co), generator=g)
+    if kind == "ties":
+        keep = torch.rand((nb, s.H, s.W, 1), generator=g) < 0.01
+        keep[:, s.H // 3: s.H // 3 + 3] = True
+        x = x * keep
+        b[::2] = 0.0
+        b[1::4] = b[1::4].abs()
+        gy = torch.sign(gy) * (torch.rand(gy.shape, generator=g) < 0.1)
+    bf = lambda t: t.to(torch.bfloat16).to(dev).contiguous()
+    return bf(x.reshape(nb, s.H, s.W * s.Ci)), bf(w), bf(b), bf(gy)
+
+
+def _abs(a, r) -> float:
+    return float((a.float() - r.float()).abs().max())
+
+
+def _rel(a, r) -> float:
+    return _abs(a, r) / max(float(r.float().abs().max()), 1e-6)
+
+
+def phase_bwd_kernels(dev, batches=BWD_BATCHES):
+    """Each block's backward at B in ``batches``, on tie and random inputs:
+    the conv_block Function's gradients (the route, dgrad and wgrad kernels)
+    against the plain block's VJP, dx, dw and db each within REL_TOL of
+    max|ref|; each kernel against its plain version on the same inputs; two
+    identical backward calls bit-equal. Returns each kernel's largest
+    max|d| against its plain version (the route's: in dz)."""
+    import torch
+
+    from distributed_ba3c_tpu_torch.ops.conv_block import (
+        conv_block,
+        conv_block_bwd,
+        conv_block_dgrad,
+        conv_block_route,
+        conv_block_wgrad,
+        dgrad_plain,
+        route_plain,
+        wgrad_plain,
+    )
+
+    saved = launch_counts()
+    worst = {"route": 0.0, "dgrad": 0.0, "wgrad": 0.0}
+    for nb in batches:
+        for i, s, plain, x_grad in vjp_cases():
+            for kind in ("ties", "random"):
+                x, w, b, gy = bwd_inputs(s, nb, kind, dev, seed=100 * i + nb)
+                grads = []
+                for fn in (lambda *a: conv_block(*a, s, plain), lambda *a: plain(*a, s)):
+                    leaves = [x.detach().requires_grad_(x_grad), w.detach().requires_grad_(True),
+                              b.detach().requires_grad_(True)]
+                    fn(*leaves).backward(gy)
+                    grads.append([t.grad for t in leaves if t.grad is not None])
+                dz, dbpart = conv_block_route(x, w, b, gy, s, plain)
+                dz_ref, dbpart_ref = route_plain(x, w, b, gy, s, plain)
+                again = conv_block_bwd(x, w, b, gy, s, plain, (x_grad, True, True))
+                first = conv_block_bwd(x, w, b, gy, s, plain, (x_grad, True, True))
+                torch.cuda.synchronize()
+                names = (["dx"] if x_grad else []) + ["dw", "db"]
+                rel = {n: _rel(a, r) for n, a, r in zip(names, *grads)}
+                checks = {f"vjp {n}": rel[n] < REL_TOL for n in names}
+                dz_off = float((dz != dz_ref).float().mean())
+                rel["route db"] = _rel(dbpart.sum(0), dbpart_ref.sum(0))
+                worst["route"] = max(worst["route"], _abs(dz, dz_ref))
+                checks["route dz"] = dz_off <= DZ_MISMATCH
+                checks["route db"] = rel["route db"] < REL_TOL
+                if x_grad:
+                    dx, dx_ref = conv_block_dgrad(dz, w, s), dgrad_plain(dz, w, s)
+                    rel["dgrad"] = _rel(dx, dx_ref)
+                    checks["dgrad"] = rel["dgrad"] < REL_TOL
+                    worst["dgrad"] = max(worst["dgrad"], _abs(dx, dx_ref))
+                dw, db = conv_block_wgrad(x, dz, dbpart, s)
+                dw_ref, db_ref = wgrad_plain(x, dz, dbpart, s)
+                rel["wgrad dw"], rel["wgrad db"] = _rel(dw, dw_ref), _rel(db, db_ref)
+                checks["wgrad"] = rel["wgrad dw"] < REL_TOL and rel["wgrad db"] < REL_TOL
+                worst["wgrad"] = max(worst["wgrad"], _abs(dw, dw_ref), _abs(db, db_ref))
+                checks["bit-equal rerun"] = all(
+                    (a is None and c is None) or torch.equal(a, c) for a, c in zip(first, again))
+                ok = all(checks.values())
+                log(f"[bwd] block{i} ({plain.__name__}) B={nb} {kind}: "
+                    + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
+                    + f" dz-mismatch={dz_off:.2e}" + (" ok" if ok else
+                    " FAIL " + ",".join(k for k, v in checks.items() if not v)))
+                if not ok:
+                    raise AssertionError(f"conv_block backward disagrees on block{i} B={nb} {kind}")
+                del grads, dz, dz_ref, again, first
+    set_launch_counts(saved)  # comparison launches do not count
+    return worst
+
+
+def phase_bwd_times(dev, nb: int) -> dict:
+    """Each backward kernel's time per block at batch ``nb`` on random
+    inputs: {block: {kernel: ms}}."""
+    from distributed_ba3c_tpu_torch.ops.conv_block import (
+        conv_block_dgrad,
+        conv_block_route,
+        conv_block_wgrad,
+    )
+
+    saved = launch_counts()
+    out = {}
+    for i, s, plain, x_grad in vjp_cases():
+        x, w, b, gy = bwd_inputs(s, nb, "random", dev, seed=i)
+        dz, dbpart = conv_block_route(x, w, b, gy, s, plain)
+        ms = {"route": time_ms(lambda: conv_block_route(x, w, b, gy, s, plain), iters=10),
+              "wgrad": time_ms(lambda: conv_block_wgrad(x, dz, dbpart, s), iters=10)}
+        if x_grad:
+            ms["dgrad"] = time_ms(lambda: conv_block_dgrad(dz, w, s), iters=10)
+        out[f"block{i}"] = ms
+        log(f"[kernel-times] block{i} backward at B={nb}: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    set_launch_counts(saved)
+    return out
+
+
+def vjp_cases():
+    """(index, spec, plain, x takes a gradient) of each block as the model
+    runs it: block 0 on bf16 frames / 255 with flax's rules and no input
+    gradient, blocks 1-3 with reference_block's."""
+    from distributed_ba3c_tpu_torch.ops.conv_block import (
+        ba3c_specs,
+        flax_block,
+        reference_block,
+        supported,
+    )
+
+    return [(i, dataclasses.replace(s0, scale_uint8=False),
+             reference_block if supported(s0) else flax_block, i > 0)
+            for i, s0 in enumerate(ba3c_specs())]
 
 
 def pong_states(n_blocks: int, n_envs: int = 64, seed: int = 0):
@@ -444,33 +595,35 @@ def pong_train_states(dev, n_envs: int = TRAIN_ENVS, steps: int = TRAIN_T, seed:
 
 
 def phase_vjp(dev, states):
-    """The conv_block Function (kernel forward, plain-recompute backward) per
-    block at B=2560, as the learner runs it, against the plain block under
-    autograd on the same inputs, with the times of both and of the library's
-    F.conv2d + relu + F.max_pool2d under autograd."""
+    """The conv_block Function (kernel forward; backward the route, dgrad
+    and wgrad kernels) per block at B=2560, as the learner runs it, against
+    the plain block under autograd on the same inputs, with the times of
+    both and of the library's F.conv2d + relu + F.max_pool2d under
+    autograd; then each backward kernel alone against its plain version and
+    one library call of the same function (aten.convolution_backward for
+    the dgrad and the wgrad; the route has none)."""
     import torch
     import torch.nn.functional as F
 
     from distributed_ba3c_tpu_torch.ops.conv_block import (
-        ba3c_specs,
+        _conv_input,
         conv_block,
-        conv_block_fwd,
-        flax_block,
-        reference_block,
-        supported,
+        conv_block_dgrad,
+        conv_block_route,
+        conv_block_wgrad,
+        dgrad_plain,
+        route_plain,
+        wgrad_plain,
     )
 
     g = torch.Generator().manual_seed(1)
     x = (states.reshape(TRAIN_B, 84, 84 * 4).to(torch.bfloat16) / 255.0).contiguous()
     rows = []
-    saved = (conv_block_fwd.launches, conv_block.launches)
-    for i, s0 in enumerate(ba3c_specs()):
-        s = dataclasses.replace(s0, scale_uint8=False)
-        plain = reference_block if supported(s) else flax_block
+    saved = launch_counts()
+    for i, s, plain, x_grad in vjp_cases():
         w = (torch.randn((s.kh, s.kw, s.Ci, s.Co), generator=g) * 0.1).to(torch.bfloat16).to(dev)
         b = (torch.randn((s.Co,), generator=g) * 0.05).to(torch.bfloat16).to(dev)
         gy = torch.randn((TRAIN_B, s.Ho, s.Wo * s.Co), generator=g).to(torch.bfloat16).to(dev)
-        x_grad = i > 0  # the model's block 0 takes the frames, which need no gradient
 
         def run(fn, x=x, w=w, b=b, gy=gy, x_grad=x_grad):
             leaves = [x.detach().requires_grad_(x_grad), w.detach().requires_grad_(True),
@@ -481,7 +634,6 @@ def phase_vjp(dev, states):
 
         fn_kernel = lambda xx, ww, bb, s=s, plain=plain: conv_block(xx, ww, bb, s, plain)
         fn_plain = lambda xx, ww, bb, s=s, plain=plain: plain(xx, ww, bb, s)
-        w_oihw = w.permute(3, 2, 0, 1).contiguous()
         pad = (s.pw, s.kw - 1 - s.pw, s.ph, s.kh - 1 - s.ph)
 
         def fn_library(xx, ww, bb, s=s, pad=pad):
@@ -508,8 +660,6 @@ def phase_vjp(dev, states):
         n_bytes = 2 * (x.numel() + w.numel() + b.numel() + gy.numel()
                        + gy.numel() + w.numel() + b.numel() + x.numel() * x_grad)
         n_ops = (2 + x_grad) * TRAIN_B * needed_flops(s)
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / BF16_FLOPS_PER_S * 1e3
         row = {
             "block": f"block{i}",
             "rules": plain.__name__,
@@ -519,17 +669,74 @@ def phase_vjp(dev, states):
             "ms": time_ms(lambda: run(fn_kernel), iters=5, warmup=2),
             "plain_ms": time_ms(lambda: run(fn_plain), iters=5, warmup=2),
             "library_ms": time_ms(lambda: run(fn_library), iters=5, warmup=2),
-            "bytes": n_bytes,
-            "ops": n_ops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **bound(n_bytes, n_ops),
         }
         log(f"[vjp] block{i}: fwd+bwd kernel path {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"library {row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+        # each backward kernel alone, on this block's inputs
+        dz, dbpart = conv_block_route(x, w, b, gy, s, plain)
+        Hd, Wd = dz.shape[1:3]
+        # the library's inputs, laid out outside the timed call: NCHW views
+        # of the channels-last data, x padded SAME and cut to dz's grid
+        x_nchw = _conv_input(x, s, torch.bfloat16)[:, :, : Hd + s.kh - 1, : Wd + s.kw - 1]
+        x_nchw = x_nchw.contiguous(memory_format=torch.channels_last)
+        dz_nchw = dz.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def library_bwd(mask):
+            return torch.ops.aten.convolution_backward(
+                dz_nchw, x_nchw, w_oihw, [s.Co], [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
+
+        n_x, n_dz = x.numel() * x.element_size(), dz.numel() * 2
+        ops = TRAIN_B * needed_flops(s)
+        kern = {
+            "route": {
+                "ms": time_ms(lambda: conv_block_route(x, w, b, gy, s, plain), iters=5, warmup=2),
+                "plain_ms": time_ms(lambda: route_plain(x, w, b, gy, s, plain), iters=5, warmup=2),
+                "library_ms": None,
+                **bound(n_x + 2 * (w.numel() + b.numel() + gy.numel()) + n_dz, ops),
+            },
+            "wgrad": {
+                "ms": time_ms(lambda: conv_block_wgrad(x, dz, dbpart, s), iters=5, warmup=2),
+                "plain_ms": time_ms(lambda: wgrad_plain(x, dz, dbpart, s), iters=5, warmup=2),
+                "library_ms": time_ms(lambda: library_bwd([False, True, True]), iters=5, warmup=2),
+                **bound(n_x + n_dz + 2 * (w.numel() + b.numel()), ops),
+            },
+        }
+        if x_grad:
+            kern["dgrad"] = {
+                "ms": time_ms(lambda: conv_block_dgrad(dz, w, s), iters=5, warmup=2),
+                "plain_ms": time_ms(lambda: dgrad_plain(dz, w, s), iters=5, warmup=2),
+                "library_ms": time_ms(lambda: library_bwd([True, False, False]), iters=5, warmup=2),
+                **bound(n_dz + 2 * w.numel() + n_x, ops),
+            }
+        row["bwd_kernels"] = kern
+        log(f"[vjp] block{i} backward kernels at B={TRAIN_B}: " + "; ".join(
+            f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
+            f"{'-' if v['library_ms'] is None else format(v['library_ms'], '.4f')}, bound "
+            f"{v['bound_ms']:.4f} {v['bound_by']}, {100 * v['bound_ms'] / v['ms']:.1f}% of it)"
+            for k, v in kern.items()))
         rows.append(row)
+        del dz, dbpart, x_nchw, dz_nchw
         x = ref[0]  # the next block takes this block's output
-    conv_block_fwd.launches, conv_block.launches = saved  # comparison launches do not count
+    set_launch_counts(saved)  # comparison launches do not count
     return rows
+
+
+def summed_bound(parts) -> dict:
+    """:func:`bound` of the summed bytes and operations of ``parts``."""
+    out = bound(sum(p["bytes"] for p in parts), sum(p["ops"] for p in parts))
+    return {"bound_ms": out["bound_ms"], "bound_by": out["bound_by"]}
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """The least time of the work on an H100 SXM at 700 W: bytes over the
+    memory rate or operations over the dense bf16 rate, the larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / BF16_FLOPS_PER_S * 1e3
+    return {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def _rel_l2(got, ref):
@@ -542,7 +749,9 @@ def _rel_l2(got, ref):
 def phase_train_grads(dev, states):
     """One learner chunk (B=2560 Pong states) through BA3CNet(6) at full
     width: the gradients with conv_backend="cuda" (the kernel forward and
-    the conv_block VJP) against conv_backend="torch" (the plain blocks)."""
+    the backward kernels) against conv_backend="torch" (the plain blocks
+    under autograd), and each one's peak device memory
+    (``max_memory_allocated`` over the chunk, states and nets included)."""
     import torch
 
     from distributed_ba3c_tpu_torch.config import BA3CConfig
@@ -552,24 +761,29 @@ def phase_train_grads(dev, states):
     g = torch.Generator(device=dev).manual_seed(2)
     actions = torch.randint(0, 6, (TRAIN_B,), generator=g, device=dev)
     returns = torch.randn((TRAIN_B,), generator=g, device=dev)
-    grads, aux = {}, {}
+    grads, aux, peak = {}, {}, {}
     for backend in ("cuda", "torch"):
         net = BA3CNet(6, conv_backend=backend, device=dev,
                       generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         gs, loss = learner_grads(net, BA3CConfig(), states, actions, returns, 0.01,
                                  grad_chunk_samples=TRAIN_B)
+        torch.cuda.synchronize()
+        peak[backend] = torch.cuda.max_memory_allocated(dev)
         grads[backend] = {k: gr for (k, _), gr in zip(net.named_parameters(), gs)}
         aux[backend] = float(loss.total)
-    torch.cuda.synchronize()
+        del net, gs, loss
     errs = _rel_l2(grads["cuda"], grads["torch"])
     worst = max(errs, key=errs.get)
-    log(f"[train] learner chunk B={TRAIN_B} gradients, kernel vs plain forward: "
-        f"worst rel-L2 {errs[worst]:.3e} ({worst}); loss {aux['cuda']:.6f} vs {aux['torch']:.6f}")
+    log(f"[train] learner chunk B={TRAIN_B} gradients, kernels vs plain blocks: "
+        f"worst rel-L2 {errs[worst]:.3e} ({worst}); loss {aux['cuda']:.6f} vs {aux['torch']:.6f}; "
+        f"peak memory {peak['cuda'] / 2**30:.3f} GiB vs {peak['torch'] / 2**30:.3f} GiB")
     if not all(torch.isfinite(v).all() for v in grads["cuda"].values()):
         raise AssertionError("learner gradients on the card are not finite")
     if errs[worst] >= GRAD_REL_L2:
         raise AssertionError(f"learner gradients disagree: {errs}")
-    return errs
+    return {"rel_l2": errs, "peak_bytes": peak}
 
 
 def phase_train_cli(dev):
@@ -616,25 +830,22 @@ def phase_train_step(dev):
         make_fused_step,
     )
     from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
-    from distributed_ba3c_tpu_torch.ops.conv_block import conv_block, conv_block_fwd
-
     cfg = BA3CConfig(batch_size=TRAIN_B)
     net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(0))
     state = create_fused_state(0, net, cfg, pong, TRAIN_ENVS)
     opt = state.train.optimizer
     step = make_fused_step(net, opt, cfg, pong, TRAIN_T)
     before = {k: v.clone() for k, v in net.state_dict().items()}
-    f0, v0 = conv_block_fwd.launches, conv_block.launches
+    before_launches = launch_counts()
     state, m = step(state, 0.01, 0.0)
     torch.cuda.synchronize()
-    per_update = (conv_block_fwd.launches - f0, conv_block.launches - v0)
+    per_update = {k: v - before_launches[k] for k, v in launch_counts().items()}
     same = all(torch.equal(v, before[k]) for k, v in net.state_dict().items())
     state, m = step(state, 0.01, 1e-3)
     torch.cuda.synchronize()
     moved = sum(not torch.equal(v, before[k]) for k, v in net.state_dict().items())
     finite = all(math.isfinite(float(v)) for v in m.values())
-    log(f"[train] step API: launches per update conv_block_fwd {per_update[0]} "
-        f"conv_block_vjp {per_update[1]}; lr=0 leaves params equal: {same}; "
+    log(f"[train] step API: launches per update {per_update}; lr=0 leaves params equal: {same}; "
         f"lr=1e-3 moved {moved}/{len(before)} tensors; metrics finite: {finite}")
     if not (same and moved > 0 and finite):
         raise AssertionError("the fused step's update is wrong")
@@ -664,15 +875,44 @@ def phase_train_step(dev):
             iters=3, warmup=1),
         "optimizer_ms": time_ms(lambda: opt.step(grads), iters=10),
     }
-    saved = (conv_block_fwd.launches, conv_block.launches)
+    saved = launch_counts()
     parts["update_ms"] = time_ms(lambda: step(state, 0.01, 0.0), iters=3, warmup=1)
-    conv_block_fwd.launches, conv_block.launches = saved
+    set_launch_counts(saved)
     parts["parts_sum_ms"] = sum(v for k, v in parts.items() if k not in ("update_ms",))
     parts["env_steps_per_s"] = TRAIN_B / parts["update_ms"] * 1e3
     log(f"[train] per update (B={B} envs x T={TRAIN_T}): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()))
-    return {"launches_per_update": {"conv_block_fwd": per_update[0],
-                                    "conv_block_vjp": per_update[1]}, **parts}
+    return {"launches_per_update": per_update, **parts}
+
+
+#: the launch counts the paths are read by: each kernel wrapper's, and
+#: conv_block's backward passes on the card (conv_block_vjp)
+COUNTED = ("conv_block_fwd", "conv_block_vjp", "conv_block_route", "conv_block_dgrad",
+           "conv_block_wgrad")
+
+
+def _counters():
+    from distributed_ba3c_tpu_torch.ops import conv_block as cb
+
+    return {"conv_block_fwd": cb.conv_block_fwd, "conv_block_vjp": cb.conv_block,
+            "conv_block_route": cb.conv_block_route, "conv_block_dgrad": cb.conv_block_dgrad,
+            "conv_block_wgrad": cb.conv_block_wgrad}
+
+
+def launch_counts() -> dict:
+    return {k: f.launches for k, f in _counters().items()}
+
+
+def set_launch_counts(counts: dict) -> None:
+    for k, f in _counters().items():
+        f.launches = counts[k]
+
+
+#: launches per training update: 4 blocks x (T rollout forwards + 1
+#: bootstrap + 1 learner chunk); per learner chunk one backward of each
+#: block: a route each, a dgrad for blocks 1-3, a wgrad each
+PER_UPDATE = {"conv_block_fwd": 4 * (TRAIN_T + 2), "conv_block_vjp": 4,
+              "conv_block_route": 4, "conv_block_dgrad": 3, "conv_block_wgrad": 4}
 
 
 def main(argv=None) -> int:
@@ -685,8 +925,9 @@ def main(argv=None) -> int:
                     help="only build the kernels and hold each against its plain "
                          "version (a new kernel's first call); prints no result")
     ap.add_argument("--kernel-times", metavar="B,B,...",
-                    help="only build, hold every block against its plain version and "
-                         "time it at these batches; prints one JSON line, no result")
+                    help="only build, hold every block's forward against its plain "
+                         "version and time it and each backward kernel at these "
+                         "batches; prints one JSON line, no result")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -694,7 +935,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from distributed_ba3c_tpu_torch.ops.conv_block import conv_block, conv_block_fwd
+    from distributed_ba3c_tpu_torch.ops.conv_block import conv_block_fwd
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -710,13 +951,15 @@ def main(argv=None) -> int:
     phase_build()
     if args.parity:
         phase_kernels(dev, timed_batches=())
+        phase_bwd_kernels(dev)
         log("[parity] every kernel agrees with its plain version; nothing was timed")
         return 0
     if args.kernel_times:
         batches = tuple(int(b) for b in args.kernel_times.split(","))
         rows_by_b, _ = phase_kernels(dev, batches=batches, timed_batches=batches)
         log("[kernel-times] " + json.dumps({"root": ROOT, "ms": {
-            nb: {r["block"]: r["ms"] for r in rows} for nb, rows in rows_by_b.items()}}))
+            nb: {r["block"]: r["ms"] for r in rows} for nb, rows in rows_by_b.items()},
+            "bwd_ms": {nb: phase_bwd_times(dev, nb) for nb in batches}}))
         return 0
     rows_by_b, kernel_err = phase_kernels(dev)
     rows = rows_by_b[B]
@@ -738,46 +981,42 @@ def main(argv=None) -> int:
     if play_launches == 0:
         raise AssertionError("--task play never launched conv_block_fwd")
 
+    bwd_err = phase_bwd_kernels(dev)
     train_states = pong_train_states(dev)
     vjp_rows = phase_vjp(dev, train_states)
-    grad_errs = phase_train_grads(dev, train_states)
+    grad = phase_train_grads(dev, train_states)
     del train_states
-    conv_block_fwd.launches = conv_block.launches = 0
+    set_launch_counts({k: 0 for k in COUNTED})
     train = phase_train_cli(dev)
-    train_launches = {"conv_block_fwd": conv_block_fwd.launches,
-                      "conv_block_vjp": conv_block.launches}
-    # 4 blocks x (T rollout forwards + 1 bootstrap + 1 learner chunk) per
-    # update, and 4 per greedy-eval step; the VJP once per block and chunk
-    want = {"conv_block_fwd": train["updates"] * 4 * (TRAIN_T + 1 + 1)
-            + train["evals"] * train["eval_steps"] * 4,
-            "conv_block_vjp": train["updates"] * 4}
-    log(f"[train] cli launches: {train_launches} (expected {want}: 88 conv_block_fwd "
-        f"per update, 800 per eval, 4 conv_block_vjp per update)")
+    train_launches = launch_counts()
+    # per update PER_UPDATE; and 4 forwards per greedy-eval step
+    want = {k: train["updates"] * n for k, n in PER_UPDATE.items()}
+    want["conv_block_fwd"] += train["evals"] * train["eval_steps"] * 4
+    log(f"[train] cli launches: {train_launches} (expected {want}: per update {PER_UPDATE}, "
+        f"800 conv_block_fwd per eval)")
     if train_launches != want:
         raise AssertionError(f"train launches {train_launches}, expected {want}")
     step = phase_train_step(dev)
-    if step["launches_per_update"] != {"conv_block_fwd": 4 * (TRAIN_T + 2), "conv_block_vjp": 4}:
+    if step["launches_per_update"] != PER_UPDATE:
         raise AssertionError(f"launches per update: {step['launches_per_update']}")
 
     path = [r for r in rows if r["block"] != "block0_uint8"]
-    t_bytes = sum(r["bytes"] for r in path) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(r["ops"] for r in path) / BF16_FLOPS_PER_S * 1e3
-    v_bytes = sum(r["bytes"] for r in vjp_rows) / HBM_BYTES_PER_S * 1e3
-    v_ops = sum(r["ops"] for r in vjp_rows) / BF16_FLOPS_PER_S * 1e3
     fwd_by_path = {"serve": serve_launches, "play": play_launches,
                    "train": train_launches["conv_block_fwd"]}
+    bwd_src = "distributed_ba3c_tpu_torch/csrc/conv_block_bwd.cu"
     kernels = [{
         "name": "conv_block_fwd",
         "route": "cuda",
         "source": "distributed_ba3c_tpu_torch/csrc/conv_block.cu",
+        "sources": ["distributed_ba3c_tpu_torch/csrc/conv_block.cu",
+                    "distributed_ba3c_tpu_torch/csrc/conv_block.cuh"],
         "replaces": "distributed_ba3c_tpu/ops/pallas_conv.py:252",
         "launches": sum(fwd_by_path.values()),
         "launches_by_path": fwd_by_path,
         "max_abs_err": kernel_err,
         "ms": sum(r["ms"] for r in path),
         "plain_ms": sum(r["plain_ms"] for r in path),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **summed_bound(path),
         "library_ms": sum(r["library_ms"] for r in path),
         "shapes": "the four blocks of one BA3CNet forward at B=256 (sums); per_block below",
         "per_block": rows,
@@ -786,22 +1025,44 @@ def main(argv=None) -> int:
     }, {
         "name": "conv_block_vjp",
         "route": "cuda",
-        "source": "distributed_ba3c_tpu_torch/ops/conv_block.py",
+        "source": bwd_src,
+        "sources": [bwd_src, "distributed_ba3c_tpu_torch/csrc/conv_block.cuh",
+                    "distributed_ba3c_tpu_torch/csrc/conv_block.cu",
+                    "distributed_ba3c_tpu_torch/ops/conv_block.py"],
         "replaces": "distributed_ba3c_tpu/ops/pallas_conv.py:335",
         "launches": train_launches["conv_block_vjp"],
         "launches_by_path": {"train": train_launches["conv_block_vjp"]},
         "max_abs_err": max(r["max_abs_err"] for r in vjp_rows),
         "ms": sum(r["ms"] for r in vjp_rows),
         "plain_ms": sum(r["plain_ms"] for r in vjp_rows),
-        "bound_ms": max(v_bytes, v_ops),
-        "bound_by": "bytes" if v_bytes >= v_ops else "operations",
+        **summed_bound(vjp_rows),
         "library_ms": sum(r["library_ms"] for r in vjp_rows),
-        "shapes": ("forward (csrc/conv_block.cu) + backward (plain recompute) of the four "
+        "shapes": ("forward (conv_block_fwd) + backward (route, dgrad, wgrad) of the four "
                    f"blocks of one learner chunk at B={TRAIN_B} (sums); per_block below"),
         "per_block": vjp_rows,
+        "parity_batches": list(BWD_BATCHES),
     }]
+    for name in ("route", "dgrad", "wgrad"):
+        parts = [r["bwd_kernels"][name] for r in vjp_rows if name in r["bwd_kernels"]]
+        lib = [p["library_ms"] for p in parts]
+        kernels.append({
+            "name": f"conv_block_{name}",
+            "route": "cuda",
+            "source": bwd_src,
+            "replaces": "distributed_ba3c_tpu/ops/pallas_conv.py:351",
+            "launches": train_launches[f"conv_block_{name}"],
+            "launches_by_path": {"train": train_launches[f"conv_block_{name}"]},
+            "max_abs_err": bwd_err[name],
+            "ms": sum(p["ms"] for p in parts),
+            "plain_ms": sum(p["plain_ms"] for p in parts),
+            **summed_bound(parts),
+            "library_ms": None if None in lib else sum(lib),
+            "shapes": (f"the {len(parts)} blocks of one learner chunk's backward at "
+                       f"B={TRAIN_B} (sums; per block in conv_block_vjp's per_block)"),
+        })
     log(json.dumps({"serving": serve, "model_forward_ms": fwd, "play_launches": play_launches,
-                    "train": {"cli": train, "step": step, "grad_rel_l2": grad_errs}}))
+                    "train": {"cli": train, "step": step, "grad_rel_l2": grad["rel_l2"],
+                              "learner_peak_bytes": grad["peak_bytes"]}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

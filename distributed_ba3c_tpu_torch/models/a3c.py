@@ -26,9 +26,11 @@ The forward is differentiable on both backends, with the JAX model's
 holds differentiates as JAX's ``reference_block`` (relu'(0) = 1/2, a tied
 pool window split evenly), every other block as flax's layers (relu'(0) =
 0, the pool gradient to the first maximum). On ``cuda`` the forward is the
-kernel and the backward recomputes the same plain block as on ``torch``
-(``conv_block``), so the CPU tests speak for the card. The f32 params take
-their gradients through the bf16 weight-prologue cast, as flax casts
+kernel and the backward is hand-written kernels too (``conv_block``: a
+recompute that routes the cotangent by the block's tie rule, then the input
+and weight gradients), held against the plain block's VJP on the card by
+chip_smoke.py; on ``torch`` it is the plain block's VJP. The f32 params
+take their gradients through the bf16 weight-prologue cast, as flax casts
 inside the layer.
 
 Parameters live in PyTorch's layouts: conv weights OIHW, dense weights

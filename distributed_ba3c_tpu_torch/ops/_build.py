@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library under ``build/kernels/`` at the repo root, then
 bound with ``ctypes``. The library's file name carries a digest of the
-source and the flags, so an edited source is rebuilt and a built one is
-reused. Nothing is built when a module is imported: :func:`load` builds at
+source, of every header in ``csrc/`` and of the flags, so an edited source
+or header is rebuilt and a built one is reused. Nothing is built when a module is imported: :func:`load` builds at
 first use, and :func:`build_all` starts one ``nvcc`` per source at once.
 """
 
@@ -30,17 +30,32 @@ NVCC_FLAGS = [
 ]
 
 #: the C entry points of each source: name -> (restype, argtypes)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "conv_block": {
+        # x, x_uint8, w, b, y, B, H, W, Ci, Co, kh, kw, pool, scale, stream
         "ba3c_conv_block_fwd": (
-            ctypes.c_int,
-            [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_float, ctypes.c_void_p,
-            ],
+            _I, [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        ),
+    },
+    "conv_block_bwd": {
+        # x, x_uint8, w, b, g, dz, dbpart, dbpart_cap, n_dbpart (int*),
+        # flax, B, H, W, Ci, Co, kh, kw, pool, scale, stream
+        "ba3c_conv_block_route": (
+            _I,
+            [_P, _I, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_I),
+             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        ),
+        # dz, wt, dx, B, H, W, Ci, Co, kh, kw, pool, stream
+        "ba3c_conv_block_dgrad": (
+            _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        ),
+        # x, x_uint8, dz, dbpart, n_dbpart, part, part_cap, dw, db,
+        # B, H, W, Ci, Co, kh, kw, pool, scale, stream
+        "ba3c_conv_block_wgrad": (
+            _I,
+            [_P, _I, _P, _P, _I, _P, _I, _P, _P,
+             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
         ),
     },
 }
@@ -65,9 +80,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` is built for its current source and flags."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built for its current source, the
+    headers in ``csrc/`` (any of them may be included) and the flags."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as fh:
+            digest.update(fname.encode() + b"\0" + fh.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -314,7 +314,7 @@ def test_gemm_view_matches_both_references(name, s):
 
 # -- the kernel's index math, emulated lane by lane ----------------------------
 #
-# A numpy mirror of csrc/conv_block.cu: Geom, load_halo, conv_chunk (the
+# A numpy mirror of csrc/conv_block.cuh: Geom, load_halo, conv_chunk (the
 # ldmatrix lane addresses, the A/B fragments of mma.m16n8k16, the row-mode
 # 32-bit A loads) and the epilogue, over the same shared-memory layout. It
 # keeps the kernel's names, so an edit to the kernel's indexing is made here
@@ -327,12 +327,13 @@ _G, _T = _LANE >> 2, _LANE & 3
 
 
 class _Geom:
-    """conv_block.cu's ``Geom<KH, KW, CI, CO, POOL>``."""
+    """conv_block.cuh's ``Geom<KH, KW, CI, CO, POOL, PH, PW>``."""
 
-    def __init__(self, s: ConvSpec):
+    def __init__(self, s: ConvSpec, ph=None, pw=None):
         self.KH, self.KW, self.CI, self.CO, self.POOL = s.kh, s.kw, s.Ci, s.Co, s.pool
         self.U = 2 if s.pool else 1
-        self.PH, self.PW = (s.kh - 1) // 2, (s.kw - 1) // 2
+        self.PH = (s.kh - 1) // 2 if ph is None else ph
+        self.PW = (s.kw - 1) // 2 if pw is None else pw
         self.ROW = s.Ci % 16 != 0
         self.KROW = (s.kw * s.Ci + 15) // 16 * 16
         self.KP = s.kh * self.KROW if self.ROW else s.kh * s.kw * s.Ci
@@ -403,11 +404,15 @@ def _a_pos(G, u0, units, WO, pitch, plane, f, row, par):
     return G.slot(uy, ux, pitch, plane)
 
 
-def _emulate_kernel(x, w, b, s: ConvSpec, R: int) -> np.ndarray:
-    """conv_block_kernel with band height R, item by item; x as the kernel
-    reads it (uint8 or bf16 values), w and b bf16 values."""
-    G = _Geom(s)
+def _emulate_mainloop(x, w, s: ConvSpec, R: int, G=None, hin=None):
+    """conv_block_kernel's loads and mainloop with band height R, item by
+    item: yields (bi, r0, units, u0, acc), acc[f, j, chunk, lane, 4] the
+    accumulators of every chunk u0 of the item. x as the kernel reads it
+    (uint8 or bf16 values) on its input grid ``hin`` (default s.H x s.W),
+    w bf16 values, G the geometry (default ``_Geom(s)``)."""
+    G = G or _Geom(s)
     n, H, W = x.shape[0], s.H, s.W
+    Hin, Win = hin or (H, W)
     HO, WO = H // G.U, W // G.U
     NB = -(-HO // R)
     hwc, pitch = G.halo_cols(W), G.halo_pitch(W)
@@ -422,7 +427,6 @@ def _emulate_kernel(x, w, b, s: ConvSpec, R: int) -> np.ndarray:
             src = ky * G.KW * G.CI + j if valid else 0
         ws[kp * G.WS: kp * G.WS + G.CO] = wf[src] if valid else 0.0
     bw = (((_LANE & 7) + ((_LANE >> 3) & 1) * 8) * G.WS + (_LANE >> 4) * 8) * 2
-    y = np.full((n, HO * WO, G.CO), np.nan)
     for item in range(n * NB):
         bi, r0 = item // NB, (item % NB) * R
         rows = min(R, HO - r0)
@@ -431,14 +435,14 @@ def _emulate_kernel(x, w, b, s: ConvSpec, R: int) -> np.ndarray:
         # load_halo: rows r0*U - PH .., columns -PW .., zero outside
         hs = np.full(nrows * pitch * G.CS, np.nan)
         plane = ((nrows + 1) >> 1) * pitch
-        xs = x[bi].reshape(H, W, G.CI).astype(np.float64)
+        xs = x[bi].reshape(Hin, Win, G.CI).astype(np.float64)
         if s.scale_uint8:
             xs = _bf16(xs * scale)
         for hr in range(nrows):
             iy = r0 * G.U - G.PH + hr
             for hc in range(hwc):
                 ix = hc - G.PW
-                inside = 0 <= iy < H and 0 <= ix < W
+                inside = 0 <= iy < Hin and 0 <= ix < Win
                 p = G.slot(hr, hc, pitch, plane)
                 hs[p * G.CS: p * G.CS + G.CI] = xs[iy, ix] if inside else 0.0
         # conv_chunk for every chunk of the band at once
@@ -485,6 +489,17 @@ def _emulate_kernel(x, w, b, s: ConvSpec, R: int) -> np.ndarray:
                 for f in range(2):
                     _mma(acc[f, 2 * jj], fa[f], fb[:, :, 0], fb[:, :, 1])
                     _mma(acc[f, 2 * jj + 1], fa[f], fb[:, :, 2], fb[:, :, 3])
+        yield bi, r0, units, u0, acc
+
+
+def _emulate_kernel(x, w, b, s: ConvSpec, R: int) -> np.ndarray:
+    """conv_block_kernel with band height R, item by item; x as the kernel
+    reads it (uint8 or bf16 values), w and b bf16 values."""
+    G = _Geom(s)
+    n = x.shape[0]
+    HO, WO = s.H // G.U, s.W // G.U
+    y = np.full((n, HO * WO, G.CO), np.nan)
+    for bi, r0, units, u0, acc in _emulate_mainloop(x, w, s, R):
         # the epilogue: round, bias, relu, the 2x2 max; masked stores
         act = lambda v, bias: np.maximum(_bf16(_bf16(v) + bias), 0.0)
         yb = y[bi, r0 * WO:]
@@ -790,24 +805,40 @@ def test_supported_matches_the_jax_predicate():
 @pytest.mark.parametrize("name,s", CASES[1:], ids=[c[0] for c in CASES[1:]])
 def test_conv_block_vjp_on_the_card_matches_its_plain_block(cuda, name, s):
     """On the card the Function's forward is the kernel (one launch) and
-    its backward the plain block's VJP (counted once): the output and the
-    gradients within the band of the plain block's on the same inputs."""
+    its backward the route, dgrad (blocks 1-3) and wgrad kernels (one
+    launch each; the backward counted once): the output and the gradients
+    within the band of the plain block's on the same inputs, and a second
+    backward bit-equal to the first."""
+    from distributed_ba3c_tpu_torch.ops.conv_block import (
+        DGRAD_GEOMETRIES,
+        conv_block_dgrad,
+        conv_block_route,
+        conv_block_wgrad,
+    )
+
     plain = reference_block if supported(s) else flax_block
+    x_grad = (s.kh, s.kw, s.Ci, s.Co, s.pool) in DGRAD_GEOMETRIES
     x, w, b, g = _tie_inputs(s, seed=70 + len(name), batch=64)
     tx, tw, tb = (t.to(cuda) for t in _torch_args(x, w, b))
     gy = torch.from_numpy(g).to(torch.bfloat16).to(cuda)
+    counters = (conv_block_fwd, conv_block, conv_block_route, conv_block_dgrad, conv_block_wgrad)
     outs = []
-    before = (conv_block_fwd.launches, conv_block.launches)
-    for fn in (lambda *a: conv_block(*a, s, plain), lambda *a: plain(*a, s)):
-        leaves = [t.detach().requires_grad_(True) for t in (tx, tw, tb)]
+    for fn in (lambda *a: conv_block(*a, s, plain), lambda *a: conv_block(*a, s, plain),
+               lambda *a: plain(*a, s)):
+        before = [f.launches for f in counters]
+        leaves = [t.detach().requires_grad_(n) for t, n in zip((tx, tw, tb), (x_grad, True, True))]
         y = fn(*leaves)
         y.backward(gy)
-        outs.append([y.detach()] + [t.grad for t in leaves])
-    torch.cuda.synchronize()
-    assert (conv_block_fwd.launches, conv_block.launches) == (before[0] + 1, before[1] + 1)
-    (y, *grads), (y_ref, *grads_ref) = outs
+        outs.append([y.detach()] + [t.grad for t in leaves if t.grad is not None])
+        torch.cuda.synchronize()
+        launched = [f.launches - n for f, n in zip(counters, before)]
+        if len(outs) < 3:
+            assert launched == [1, 1, 1, int(x_grad), 1]
+    (y, *grads), (_, *again), (y_ref, *grads_ref) = outs
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
     assert float((y.float() - y_ref.float()).abs().max()) <= REL_TOL * float(y_ref.float().abs().max())
     for a, r in zip(grads, grads_ref):
         assert a.shape == r.shape and a.dtype == r.dtype
-        # the same recompute on the same inputs; cuDNN may sum in another order
+        # the kernels' z can differ from cuDNN's by one bf16 ulp, and the
+        # sums run in another order
         assert float((a.float() - r.float()).abs().max()) <= REL_TOL * float(r.float().abs().max())
