@@ -10,8 +10,9 @@ tpu_fused_ba3c`` (``_run_fused``), ``--task eval`` (``_run_eval``) and
 
 Everything runs on ``--device`` (``cuda`` by default; a missing card
 raises). eval and play serve the policy through :class:`BatchedPredictor`
-(``predict_batch``, greedy). The params come from a seeded init
-(``--seed``); loading a checkpoint waits for the checkpoint port.
+(``predict_batch``, greedy), with the params of the latest checkpoint in
+``--load <logdir>/checkpoints``, or of a seeded init (``--seed``) without
+it. ``--task train --load`` resumes a fused run from its checkpoints.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from distributed_ba3c_tpu_torch.config import BA3CConfig
 #: the JAX CLI's trainers, and what each waits for in the port
 TRAINERS = {
     "tpu_fused_ba3c": None,
-    "tpu_sync_ba3c": "ROADMAP queue A item 6 (and the ZMQ actor plane, item 3)",
-    "tpu_vtrace_ba3c": "ROADMAP queue A item 6 (and the ZMQ actor plane, item 3)",
+    "tpu_sync_ba3c": "ROADMAP queue A item 3 (the sync trainer and the ZMQ actor plane)",
+    "tpu_vtrace_ba3c": "ROADMAP queue A item 4 (the V-trace trainer, after item 3's actor plane)",
 }
 
 
@@ -71,6 +72,7 @@ def make_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="param init seed")
+    p.add_argument("--load", default=None, help="checkpoint dir to resume from")
     p.add_argument(
         "--num_actions", type=int, default=4,
         help="action space of --env fake (cpp: games set their own)",
@@ -86,6 +88,7 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_epoch", type=int, default=1000)
     p.add_argument("--max_epoch", type=int, default=100)
     p.add_argument("--eval_every", type=int, default=1, help="epochs between greedy evals")
+    p.add_argument("--max_to_keep", type=int, default=3, help="checkpoints retained (besides best)")
     p.add_argument(
         "--eval_max_steps", type=int, default=10000,
         help="greedy-eval step horizon (must cover a full episode)",
@@ -245,6 +248,12 @@ def main(argv: Optional[list] = None) -> int:
         device=args.device,
         generator=torch.Generator().manual_seed(args.seed),
     )
+    if args.load:
+        from distributed_ba3c_tpu_torch.train.checkpoint import restore_params
+        from distributed_ba3c_tpu_torch.utils import logger
+
+        step = restore_params(model, args.load)
+        logger.info("loaded params of step %d from %s", step, args.load)
     params = model.state_dict()
     if args.task == "eval":
         return _run_eval(args, cfg, model, params)

@@ -18,15 +18,20 @@ the identity. The JAX step's random key becomes a draw source
 (:class:`GeneratorDraws`): every random number of the step comes from it,
 so a test can hand the step the draws JAX made from its keys.
 
-``run_fused_training`` is the epoch loop without what the JAX loop adds
-for multi-host runs, overlap, int8, ``fleet_accum``, checkpoints and
-``--load``, the telemetry server, the watchdog, ``hyper.txt`` and
-``BA3C_PARAM_DIGEST`` (ROADMAP queue A).
+``run_fused_training`` is the JAX loop's lifecycle on one device: ``--load``
+restores the learner state and the epoch counter continues from its step
+(the anneal with it), ``<logdir>/hyper.txt`` overrides the learning rate
+and entropy beta each epoch, and every epoch ends in a checkpoint under
+``<logdir>/checkpoints`` (keep-best on the greedy eval). It leaves out what
+the JAX loop adds for multi-host runs (collective saves, the watchdog,
+``BA3C_PARAM_DIGEST``), overlap, int8, ``fleet_accum`` and the telemetry
+server (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -363,6 +368,10 @@ def run_fused_training(args, cfg: BA3CConfig) -> int:
     """``--task train --trainer tpu_fused_ba3c`` (``--env jax:<name>``)."""
     from distributed_ba3c_tpu_torch.envs import jaxenv
     from distributed_ba3c_tpu_torch.train.callbacks import anneal_interp
+    from distributed_ba3c_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        restore_train_state,
+    )
     from distributed_ba3c_tpu_torch.utils import logger
     from distributed_ba3c_tpu_torch.utils.stats import StatHolder
 
@@ -386,16 +395,47 @@ def run_fused_training(args, cfg: BA3CConfig) -> int:
     )
     rollout_len = args.rollout_len
     n_envs = max(1, cfg.batch_size // rollout_len)
+    # only the learner state is restored: the envs start fresh from --seed
     state = create_fused_state(args.seed, model, cfg, env, n_envs)
+    if args.load:
+        mgr = CheckpointManager(args.load)
+        state.train = restore_train_state(state.train, mgr)
+        logger.info("resumed train state at step %d", state.train.step)
     step = make_fused_step(
         model, state.train.optimizer, cfg, env, rollout_len,
         grad_chunk_samples=args.grad_chunk_samples,
         steps_per_dispatch=args.steps_per_dispatch,
     )
+    run_shape = {
+        "steps_per_epoch": args.steps_per_epoch,
+        "batch_size": cfg.batch_size,
+        "rollout_len": rollout_len,
+        "max_epoch": args.max_epoch,
+    }
+    shape_mismatch = False
+    if args.load:
+        # the resumed epoch is step // steps_per_epoch: another shape
+        # stretches or shifts the anneal
+        prev = mgr.read_run_meta()
+        for k, v in run_shape.items():
+            if k in prev and prev[k] != v:
+                shape_mismatch = True
+                logger.warn(
+                    "resume shape mismatch: %s was %s at save time, now %s — "
+                    "the LR/beta anneal will NOT continue where it left off",
+                    k, prev[k], v,
+                )
     evaluate = make_greedy_eval(
         model, cfg, env, max(args.nr_eval, 1), max_steps=args.eval_max_steps
     )
     holder = StatHolder(args.logdir)
+    ckpt = CheckpointManager(
+        os.path.join(args.logdir, "checkpoints"), max_to_keep=args.max_to_keep
+    )
+    if not shape_mismatch:
+        # after a mismatch the saved shape stays on record, so the warning
+        # fires again on every later resume
+        ckpt.write_run_meta(**run_shape)
     logger.set_logger_dir(args.logdir)
     samples_per_iter = n_envs * rollout_len
     logger.info(
@@ -411,27 +451,53 @@ def run_fused_training(args, cfg: BA3CConfig) -> int:
         return anneal_interp(v0, v1, f, mode or args.anneal)
 
     _fused_epoch_loop(
-        args, cfg, step, state, holder, samples_per_iter, sched, evaluate
+        args, cfg, step, state, holder, ckpt, samples_per_iter, sched, evaluate
     )
     return 0
 
 
 def _fused_epoch_loop(
-    args, cfg, step, state, holder, samples_per_iter, sched, evaluate
+    args, cfg, step, state, holder, ckpt, samples_per_iter, sched, evaluate
 ) -> None:
     import numpy as np
 
     from distributed_ba3c_tpu_torch import telemetry
+    from distributed_ba3c_tpu_torch.train.callbacks import read_hyper_file
+    from distributed_ba3c_tpu_torch.train.checkpoint import train_state_payload
     from distributed_ba3c_tpu_torch.utils import logger
+
+    # a resume continues the schedule: the epoch counter derives from the
+    # restored step, so --max_epoch is the run's total across resumes
+    epoch0 = state.train.step // max(args.steps_per_epoch, 1)
+    if epoch0 > 0:
+        logger.info(
+            "resume: continuing at epoch %d/%d (restored step %d)",
+            epoch0 + 1, args.max_epoch, state.train.step,
+        )
+    if epoch0 >= args.max_epoch:
+        logger.warn(
+            "loaded step %d already covers --max_epoch %d x %d steps: "
+            "nothing to train (raise --max_epoch to extend the run)",
+            state.train.step, args.max_epoch, args.steps_per_epoch,
+        )
+    hyper_path = os.path.join(args.logdir, "hyper.txt")
+
+    def live_hyper(lr, beta):
+        """The scheduled values, overridden by <logdir>/hyper.txt."""
+        overrides = read_hyper_file(hyper_path)
+        return (overrides.get("learning_rate", lr),
+                overrides.get("entropy_beta", beta))
 
     tele = telemetry.registry("learner")
     c_steps = tele.counter("train_steps_total")
     c_samples = tele.counter("train_samples_total")
     c_episodes = tele.counter("episodes_total")
     h_epoch = tele.histogram("epoch_s", unit=1e-3)
-    for epoch in range(1, args.max_epoch + 1):
+    best = -np.inf
+    for epoch in range(epoch0 + 1, args.max_epoch + 1):
         beta = sched(cfg.entropy_beta, args.entropy_beta_final, epoch, args.anneal_beta)
         lr = sched(cfg.learning_rate, args.learning_rate_final, epoch, args.anneal_lr)
+        lr, beta = live_hyper(lr, beta)
         t0 = time.monotonic()
         metrics: Dict[str, torch.Tensor] = {}
         for _ in range(args.steps_per_epoch // step.steps_per_dispatch):
@@ -482,3 +548,9 @@ def _fused_epoch_loop(
             epoch, fps, mean_ret, int(metrics["episodes"]), eval_mean,
             metrics["loss"], metrics["entropy"],
         )
+        # the epoch's checkpoint; keep-best on the greedy eval
+        ckpt.save(train_state_payload(state.train), state.train.step)
+        telemetry.record("checkpoint", step=state.train.step)
+        if np.isfinite(eval_mean) and eval_mean > best:
+            best = eval_mean
+            ckpt.mark_best(state.train.step, eval_mean)

@@ -21,17 +21,23 @@ any image size, and the constructor refuses other conv widths, kernels or
 input channels), ``"torch"`` its plain PyTorch version (the default on the
 CPU).
 
-The forward is differentiable on both backends, with the JAX model's
-``conv_backend="pallas"`` gradient rules: a block where ``supported``
-holds differentiates as JAX's ``reference_block`` (relu'(0) = 1/2, a tied
-pool window split evenly), every other block as flax's layers (relu'(0) =
-0, the pool gradient to the first maximum). On ``cuda`` the forward is the
-kernel and the backward is hand-written kernels too (``conv_block``: a
-recompute that routes the cotangent by the block's tie rule, then the input
-and weight gradients), held against the plain block's VJP on the card by
-chip_smoke.py; on ``torch`` it is the plain block's VJP. The f32 params
-take their gradients through the bf16 weight-prologue cast, as flax casts
-inside the layer.
+The forward is differentiable on both backends. ``block_rules`` picks the
+gradient rules of one of the JAX model's two ``conv_backend`` values (the
+forward values are the same under both):
+
+- ``"xla"`` (the default, as in JAX, and what every entry point builds):
+  every block differentiates as flax's layers (relu'(0) = 0, the pool
+  gradient to the first maximum);
+- ``"pallas"``: a block where ``supported`` holds in bf16 differentiates
+  as JAX's ``reference_block`` (relu'(0) = 1/2, a tied pool window split
+  evenly), every other block as flax's layers.
+
+On ``cuda`` the forward is the kernel and the backward is hand-written
+kernels too (``conv_block``: a recompute that routes the cotangent by the
+block's tie rule, then the input and weight gradients), held against the
+plain block's VJP on the card by chip_smoke.py; on ``torch`` it is the
+plain block's VJP. The f32 params take their gradients through the bf16
+weight-prologue cast, as flax casts inside the layer.
 
 Parameters live in PyTorch's layouts: conv weights OIHW, dense weights
 ``[out, in]``. models/convert.py maps them to and from the flax tree.
@@ -57,6 +63,9 @@ from distributed_ba3c_tpu_torch.ops.conv_block import (
 from distributed_ba3c_tpu_torch.utils.device import resolve_device
 
 CONV_BACKENDS = ("cuda", "torch")
+#: the JAX model's conv_backend values, as gradient rules (models/a3c.py:118
+#: of the JAX package)
+BLOCK_RULES = ("xla", "pallas")
 
 
 class PolicyValue(NamedTuple):
@@ -107,6 +116,7 @@ class BA3CNet(nn.Module):
         in_channels: int = 4,
         compute_dtype: torch.dtype = torch.bfloat16,
         conv_backend: Optional[str] = None,
+        block_rules: str = "xla",
         device="cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -118,6 +128,10 @@ class BA3CNet(nn.Module):
             raise ValueError(
                 f"conv_backend must be one of {CONV_BACKENDS}, got "
                 f"{conv_backend!r}"
+            )
+        if block_rules not in BLOCK_RULES:
+            raise ValueError(
+                f"block_rules must be one of {BLOCK_RULES}, got {block_rules!r}"
             )
         if conv_backend == "cuda" and compute_dtype != torch.bfloat16:
             raise ValueError(
@@ -133,6 +147,7 @@ class BA3CNet(nn.Module):
         self.in_channels = in_channels
         self.compute_dtype = compute_dtype
         self.conv_backend = conv_backend
+        self.block_rules = block_rules
         if generator is None:
             generator = torch.Generator().manual_seed(0)
 
@@ -188,11 +203,13 @@ class BA3CNet(nn.Module):
             w = conv.weight.to(cdt).permute(2, 3, 1, 0).contiguous()
             b = conv.bias.to(cdt)
             x = x.reshape(B, H, W * Ci)
-            # JAX's model: the Pallas block (reference_block's VJP) where
-            # supported in bf16, flax's layers everywhere else
+            # JAX's pallas model: the Pallas block (reference_block's VJP)
+            # where supported in bf16, flax's layers everywhere else; its xla
+            # model: flax's layers everywhere
+            pallas = self.block_rules == "pallas"
             plain = (
                 reference_block
-                if cdt == torch.bfloat16 and supported(s)
+                if pallas and cdt == torch.bfloat16 and supported(s)
                 else flax_block
             )
             if self.conv_backend == "torch":

@@ -11,11 +11,16 @@ The flax tree is a nested dict of numpy arrays, named as
 - ``PReLU_0/alpha``: a scalar, ``prelu.alpha``.
 
 Both directions are pure permutations, so the round trip is exact.
+
+The optimizer's state crosses the same way. optax's ``ScaleByAdamState``
+(``count``, and ``mu`` and ``nu`` as trees of the params' names) maps one
+to one onto torch Adam's per-parameter ``step``, ``exp_avg`` and
+``exp_avg_sq``: :func:`adam_from_optax` and :func:`adam_to_optax`.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -67,3 +72,46 @@ def to_flax(state_dict) -> dict:
         }
     out["PReLU_0"] = {"alpha": a(state_dict["prelu.alpha"])}
     return out
+
+
+def tree_to_torch(tree) -> dict:
+    """A flax tree of numpy arrays -> the same tree of CPU tensors."""
+    return {k: {n: torch.from_numpy(np.asarray(a)) for n, a in v.items()}
+            for k, v in tree.items()}
+
+
+def tree_to_numpy(tree) -> dict:
+    """A flax tree of tensors (any device) or arrays -> numpy arrays."""
+    return {k: {n: torch.as_tensor(a).cpu().numpy() for n, a in v.items()}
+            for k, v in tree.items()}
+
+
+def adam_from_optax(count, mu, nu) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax's Adam state (``count``; ``mu``, ``nu`` as flax trees of
+    arrays) -> torch Adam's state per parameter, keyed by BA3CNet
+    state_dict names: ``{"step", "exp_avg", "exp_avg_sq"}`` (CPU; ``step``
+    a float32 scalar, as torch Adam keeps it)."""
+    m, v = from_flax(mu), from_flax(nu)
+    step = float(np.asarray(count))
+    return {
+        k: {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": m[k],
+            "exp_avg_sq": v[k],
+        }
+        for k in m
+    }
+
+
+def adam_to_optax(state) -> Tuple[np.ndarray, dict, dict]:
+    """The inverse of :func:`adam_from_optax`: torch Adam's state per
+    parameter name -> ``(count, mu, nu)``, count an int32 scalar and ``mu``,
+    ``nu`` flax trees of numpy arrays. Every parameter must have taken the
+    same number of steps."""
+    steps = {float(s["step"]) for s in state.values()}
+    if len(steps) != 1:
+        raise ValueError(f"parameters at different Adam steps: {sorted(steps)}")
+    count = np.asarray(int(steps.pop()), np.int32)
+    mu = to_flax({k: s["exp_avg"] for k, s in state.items()})
+    nu = to_flax({k: s["exp_avg_sq"] for k, s in state.items()})
+    return count, mu, nu

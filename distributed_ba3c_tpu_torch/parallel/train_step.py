@@ -3,7 +3,7 @@
 Port of ``TrainState`` and ``create_train_state`` of
 ``distributed_ba3c_tpu/parallel/train_step.py``. The params live in the
 model (``BA3CNet``), the optimizer state in the optimizer; the step
-function itself waits for ROADMAP queue A item 6.
+function itself waits for the sync trainer (ROADMAP queue A item 3).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def create_train_state(
     the optimizer is :func:`make_optimizer` of ``cfg`` when not given."""
     if optimizer is None:
         optimizer = make_optimizer(
-            model.parameters(), cfg.learning_rate, cfg.adam_epsilon,
+            model.named_parameters(), cfg.learning_rate, cfg.adam_epsilon,
             cfg.grad_clip_norm,
         )
     return TrainState(step=0, model=model, optimizer=optimizer)

@@ -58,7 +58,8 @@ def test_unported_trainers_exit_with_their_roadmap_item(trainer, capsys):
         cli.main(["--task", "train", "--trainer", trainer, "--env", "jax:pong",
                   "--device", "cpu"])
     assert e.value.code == 2
-    assert "queue A item 6" in capsys.readouterr().err
+    item = {"tpu_sync_ba3c": 3, "tpu_vtrace_ba3c": 4}[trainer]
+    assert f"queue A item {item}" in capsys.readouterr().err
 
 
 def test_fused_trainer_needs_a_jax_env(tmp_path):
@@ -82,5 +83,5 @@ def test_parser_keeps_the_jax_flag_defaults():
               "steps_per_dispatch", "batch_size", "learning_rate",
               "learning_rate_final", "entropy_beta", "entropy_beta_final",
               "anneal", "anneal_lr", "anneal_beta", "eval_every",
-              "eval_max_steps", "seed", "logdir", "trainer"):
+              "eval_max_steps", "seed", "logdir", "trainer", "load", "max_to_keep"):
         assert port[k] == ref[k], k

@@ -228,10 +228,11 @@ def _flax_layers(s: ConvSpec, n: int):
     return fn
 
 
-#: (block, tie rule): the model's rules (flax's for block 0, reference_
-#: block's for 1-3), and flax's on block 2's pool of 21 rows
+#: (block, tie rule): the pallas model's rules (flax's for block 0,
+#: reference_block's for 1-3), and flax's for blocks 1-3 (the default xla
+#: model's), block 2's pool of 21 rows among them
 GEMM_CASES = [("block0", True), ("block1", False), ("block2", False), ("block3", False),
-              ("block2", True)]
+              ("block2", True), ("block1", True), ("block3", True)]
 
 
 @pytest.mark.parametrize("name,flax", GEMM_CASES,
@@ -414,6 +415,33 @@ def test_route_epilogue_emulated_matches_the_gemm_view(name, size, R, grid, flax
     assert np.array_equal(dz, ref), name
     assert (z == 0).sum() > 50 and np.abs(ref).sum() > 0
     np.testing.assert_allclose(dbpart.sum(0), ref.sum(axis=(0, 1, 2)), rtol=1e-5, atol=1e-5)
+
+
+#: blocks 1-3 under flax's rule, the JAX CLI model's: small frames, ragged
+#: bands, grids with several items per CTA
+_FLAX_ROUTE = [("block1", 10, 3, 2), ("block2", 11, 2, 3), ("block3", 8, 3, 2)]
+
+
+@pytest.mark.parametrize("name,size,R,grid", _FLAX_ROUTE,
+                         ids=[f"{n}-{hw}-R{r}-grid{gr}" for n, hw, r, gr in _FLAX_ROUTE])
+def test_route_epilogue_emulated_takes_flax_rule_as_jax_does(name, size, R, grid):
+    """The route epilogue under flax's rule (relu'(0) = 0, the window's
+    first maximum), lane by lane on blocks 1-3 at B=3 on tie inputs: dz
+    bit-exact against jax.vjp of flax's nn.relu + nn.max_pool at JAX's own
+    pre-activations. x on a grid of 1/8 and w of 1/64 make every partial
+    sum exact in f32, so JAX's pre-activations are the kernel's."""
+    s = dataclasses.replace(SPECS[name], H=size, W=size)
+    x, w, b, g = _tie_inputs(s, seed=500 + size + R, batch=3)
+    x, w, b = np.round(x * 8) / 8, np.round(w * 64) / 64, _bf16(b)
+    relu_ties, pool_ties = _count_ties(x, w, b, s)
+    assert relu_ties > 50 and (pool_ties > 20 or not s.pool), (relu_ties, pool_ties)
+    z_jax, dz_jax = _jax_dz(x, w, b, g, s, True)
+    assert np.array_equal(_bf16(_bf16(_acc64(x, w, s)) + b), z_jax)
+    dz, dbpart = _emulate_route(x, w, b, g, s, R, grid, True)
+    assert not np.isnan(dz).any()
+    assert np.array_equal(dz, dz_jax), name
+    assert np.abs(dz_jax).sum() > 0
+    np.testing.assert_allclose(dbpart.sum(0), dz_jax.sum(axis=(0, 1, 2)), rtol=1e-5, atol=1e-5)
 
 
 def _dgrad_spec(s: ConvSpec) -> ConvSpec:
@@ -672,3 +700,64 @@ def test_library_path_tracks_the_headers(tmp_path, monkeypatch):
     first = _build.library_path("k")
     (tmp_path / "k.cuh").write_text("// two\n")
     assert _build.library_path("k") != first
+
+
+# -- chip_smoke.py's test of a route that differs from cuDNN's -----------------
+
+
+def _route_at(acc, b, g, s, relu, pool):
+    """dz of ``pool(relu(acc + b))`` at a given bf16 pre-bias sum ``acc``."""
+    Hd, Wd = _dz_grid(s)
+    with torch.enable_grad():
+        a = acc.detach().requires_grad_(True)
+        y = relu(a + b.to(torch.bfloat16)[:, None, None])
+        if s.pool:
+            y = pool(y[:, :, : 2 * s.Ho, : 2 * s.Wo])
+        (dz,) = torch.autograd.grad(cb._flatten(y, s), a, g)
+    return dz[:, :, :Hd, :Wd].permute(0, 2, 3, 1).contiguous()
+
+
+def _rules(plain):
+    """(relu, pool) of ``plain``'s tie rule."""
+    if plain is flax_block:
+        return torch.relu, lambda y: torch.nn.functional.max_pool2d(y, 2)
+
+    def amax_pool(y):
+        n, c, h, w = y.shape
+        return y.reshape(n, c, h // 2, 2, w // 2, 2).amax(dim=5).amax(dim=3)
+
+    return (lambda z: torch.maximum(z, torch.zeros((), dtype=z.dtype))), amax_pool
+
+
+@pytest.mark.parametrize("case", range(7), ids=lambda i: f"case{i}")
+def test_rounding_flip_check_tells_a_rounding_from_a_rule_fault(case):
+    """chip_smoke.py's ``rounding_flips`` on random inputs: a route whose
+    pre-bias sums come from another f32 order (the exact sum moved by less
+    than the check's delta) gates a few elements otherwise than the plain
+    route, and each is explained; a route whose relu takes gradient 1 at
+    z == 0 (a tie-rule fault, as sparse as exact zeros are) is refused,
+    at a dz share far under DZ_MISMATCH."""
+    import chip_smoke
+
+    i, s, plain, _ = chip_smoke.bwd_cases()[case]
+    nb = {0: 32, 1: 16, 2: 32, 3: 128}[i]
+    x, w, b, g = chip_smoke.bwd_inputs(s, nb, "random", "cpu", seed=100 * i + nb)
+    dz_ref, _ = cb.route_plain(x, w, b, g, s, plain)
+    relu, pool = _rules(plain)
+    acc = cb._conv(x, w, s, torch.float64)
+    # the check's delta is 16 units; the other order moves each sum by < 15
+    unit = 2.0 ** -24 * cb._conv(x.abs(), w.abs(), s, torch.float64)
+    shift = (torch.rand(acc.shape, generator=torch.Generator().manual_seed(case),
+                        dtype=torch.float64) * 2 - 1) * 15 * unit
+    other_order = (acc + shift).float().to(torch.bfloat16)
+    n, explained = chip_smoke.rounding_flips(
+        x, w, b, s, _route_at(other_order, b, g, s, relu, pool), dz_ref, plain)
+    assert n > 0 and explained
+
+    def relu_fault(z):  # gradient 1 at z == 0
+        return torch.where(z >= 0, z, torch.zeros((), dtype=z.dtype))
+
+    faulty = _route_at(cb._conv(x, w, s, torch.bfloat16), b, g, s, relu_fault, pool)
+    n, explained = chip_smoke.rounding_flips(x, w, b, s, faulty, dz_ref, plain)
+    assert n > 0 and not explained
+    assert n / dz_ref.numel() < chip_smoke.DZ_MISMATCH

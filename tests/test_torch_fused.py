@@ -85,9 +85,9 @@ def jax_run():
     }
 
 
-def _port_state(host0) -> FusedState:
+def _port_state(host0, feats=FEATS) -> FusedState:
     cfg = BA3CConfig(fc_units=16)
-    net = BA3CNet(6, fc_units=16, conv_features=FEATS, device="cpu")
+    net = BA3CNet(6, fc_units=16, conv_features=feats, device="cpu")
     net.load_state_dict(from_flax(host0.train.params))
     return FusedState(
         train=create_train_state(net, cfg),
@@ -169,6 +169,43 @@ def test_one_live_update_matches_jax(jax_run):
     errs = _update_rel_l2(new, old, jax_run["live"].train.params, jax_run["init"].train.params)
     assert max(errs.values()) < UPDATE_REL_L2, errs
     assert all(np.isfinite(float(v)) for v in m.values())
+
+
+@pytest.fixture(scope="module")
+def jax_full_width_run():
+    """The JAX fused step on its default (xla) model at full conv widths,
+    fc_units=16, 2 envs x T=2: the initial state and one update at 1e-3."""
+    cfg = JaxConfig(fc_units=16)
+    model = JaxNet(num_actions=6, fc_units=16)
+    opt = jax_make_optimizer(cfg.learning_rate, cfg.adam_epsilon, cfg.grad_clip_norm)
+    step = jloop.make_fused_step(
+        model, opt, cfg, make_mesh(num_data=1, devices=jax.devices()[:1]), jpong,
+        rollout_len=2,
+    )
+    s0 = jloop.create_fused_state(jax.random.PRNGKey(1), model, cfg, opt, jpong, 2, n_shards=1)
+    host0 = _np_tree(s0)
+    s1, m = step(step.put(s0), 0.01, 1e-3)
+    return {"init": host0, "live": _np_tree(s1), "metrics": {k: float(v) for k, v in m.items()}}
+
+
+def test_full_width_update_matches_jax_default_model(jax_full_width_run):
+    """At full width the port's default model takes the JAX CLI's gradient
+    rules (flax's in every block): one update on the JAX trajectory agrees
+    per leaf within the live-update bound, and so do the metrics."""
+    run = jax_full_width_run
+    state = _port_state(run["init"], feats=(32, 32, 64, 64))
+    assert state.train.model.block_rules == "xla"
+    old = to_flax(state.train.model.state_dict())
+    step = make_fused_step(state.train.model, state.train.optimizer, BA3CConfig(fc_units=16),
+                           pong, rollout_len=2)
+    state, m = step(state, 0.01, 1e-3)
+    np.testing.assert_array_equal(state.obs_stack.numpy(), run["live"].obs_stack)
+    new = to_flax(state.train.model.state_dict())
+    errs = _update_rel_l2(new, old, run["live"].train.params, run["init"].train.params)
+    assert max(errs.values()) < UPDATE_REL_L2, errs
+    for k in METRICS:
+        got, ref = float(m[k]), run["metrics"][k]
+        assert abs(got - ref) <= METRIC_REL * max(abs(ref), 1e-6), (k, got, ref)
 
 
 def test_three_grad_chunks_give_the_one_chunk_update():

@@ -27,6 +27,10 @@ import distributed_ba3c_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+# the run-keeping modules, by name
+from distributed_ba3c_tpu_torch.train.callbacks import read_hyper_file
+from distributed_ba3c_tpu_torch.train.checkpoint import CheckpointManager
+from distributed_ba3c_tpu_torch.train.eval_tools import make_checkpoint_evaluator
 leaked = sorted(
     m for m in sys.modules
     if sys.modules[m] is not None and m.split(".")[0] in {blocked!r}

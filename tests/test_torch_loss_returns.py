@@ -147,7 +147,7 @@ def test_clip_adam_steps_match_optax_with_runtime_learning_rate():
     rng = np.random.default_rng(5)
     p0 = [rng.normal(0, 1, s).astype(np.float32) for s in [(3, 4), (4,)]]
     tparams = [torch.nn.Parameter(_t(x)) for x in p0]
-    opt = make_optimizer(tparams, 1e-3, adam_epsilon=1e-3, grad_clip_norm=0.5)
+    opt = make_optimizer(zip("ab", tparams), 1e-3, adam_epsilon=1e-3, grad_clip_norm=0.5)
     jopt = jgradproc.make_optimizer(1e-3, adam_epsilon=1e-3, grad_clip_norm=0.5)
     jparams = {"a": jnp.asarray(p0[0]), "b": jnp.asarray(p0[1])}
     jstate = jopt.init(jparams)

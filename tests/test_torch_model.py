@@ -116,12 +116,29 @@ def test_float32_matches_jax_float32(size):
 @pytest.mark.parametrize("conv_backend", ["cuda", "torch"])
 def test_bf16_matches_jax_pallas_backend(conv_backend):
     """bf16 against JAX conv_backend='pallas' (the Pallas kernel in
-    interpret mode on blocks 1-3). On the CPU the port's 'cuda' backend is
-    the kernel wrapper taking its plain version, so both agree."""
+    interpret mode on blocks 1-3), the port under that model's rules. On
+    the CPU the port's 'cuda' backend is the kernel wrapper taking its plain
+    version, so both agree."""
     p = _jax_params(4, 16, 16)
     x = _frames(3, 16, seed=1)
     ref = JaxNet(num_actions=4, fc_units=16, conv_backend="pallas").apply({"params": p}, x)
+    net = _port(4, 16, 16, p, conv_backend=conv_backend, block_rules="pallas")
+    with torch.no_grad():
+        got = net(torch.from_numpy(x))
+    assert _within_band(got.logits.numpy(), ref.logits)
+    assert _within_band(got.value.numpy(), ref.value)
+
+
+@pytest.mark.parametrize("conv_backend", ["cuda", "torch"])
+def test_bf16_matches_jax_default_backend(conv_backend):
+    """bf16 against JAX's default model (conv_backend='xla': flax's layers
+    in every block), the port under its default rules, which take the plain
+    blocks through flax_block on the CPU."""
+    p = _jax_params(4, 16, 16)
+    x = _frames(3, 16, seed=5)
+    ref = JaxNet(num_actions=4, fc_units=16).apply({"params": p}, x)
     net = _port(4, 16, 16, p, conv_backend=conv_backend)
+    assert net.block_rules == "xla"
     with torch.no_grad():
         got = net(torch.from_numpy(x))
     assert _within_band(got.logits.numpy(), ref.logits)
@@ -211,6 +228,9 @@ def test_cuda_backend_refuses_a_geometry_without_a_kernel(kwargs):
 def test_constructor_validation(monkeypatch):
     with pytest.raises(ValueError, match="conv_backend"):
         BA3CNet(4, device="cpu", conv_backend="xla")
+    with pytest.raises(ValueError, match="block_rules"):
+        BA3CNet(4, device="cpu", block_rules="cuda")
+    assert BA3CNet(4, device="cpu").block_rules == "xla"  # JAX's default
     with pytest.raises(ValueError, match="bf16 kernel"):
         BA3CNet(4, device="cpu", conv_backend="cuda", compute_dtype=torch.float32)
     assert BA3CNet(4, device="cpu").conv_backend == "torch"
@@ -219,7 +239,7 @@ def test_constructor_validation(monkeypatch):
         BA3CNet(4)  # cuda by default, and no card: raises, never runs on CPU
 
 
-# -- gradients: the pallas model's rules, the port's both backends -------------
+# -- gradients: each JAX model's rules, the port's both backends ---------------
 
 GRAD_REL_L2 = 2e-2
 #: the conv biases' bound. Their gradient is the sum of a bf16 cotangent
@@ -286,26 +306,62 @@ def _sq_loss_grads_jax(model, params, x) -> dict:
     return jax.device_get(jax.jit(jax.grad(f))(params))
 
 
-@pytest.fixture(scope="module")
-def full_width_grads():
-    """jax.grad through BA3CNet(conv_backend="pallas") at full conv widths,
-    fc_units=16, on 4 Pong frame stacks (the Pallas blocks interpret)."""
-    model = JaxNet(num_actions=6, fc_units=16, conv_backend="pallas")
+def _full_width_grads(**jax_kw):
+    """jax.grad through BA3CNet(**jax_kw) at full conv widths, fc_units=16,
+    on 4 Pong frame stacks."""
+    model = JaxNet(num_actions=6, fc_units=16, **jax_kw)
     x = pong_frames(4)
     params = jax.device_get(model.init(jax.random.PRNGKey(3), x[:1])["params"])
     return params, x, _sq_loss_grads_jax(model, params, x)
 
 
+@pytest.fixture(scope="module")
+def full_width_grads():
+    """The pallas model's gradients (its Pallas blocks interpret)."""
+    return _full_width_grads(conv_backend="pallas")
+
+
+@pytest.fixture(scope="module")
+def full_width_grads_xla():
+    """JAX's default model's gradients: the model every JAX entry point
+    builds (flax's layers in every block)."""
+    return _full_width_grads()
+
+
 @pytest.mark.parametrize("conv_backend", ["torch", "cuda"])
 def test_full_width_gradients_match_jax_pallas_model(full_width_grads, conv_backend):
-    """Blocks 1-3 differentiate as JAX's reference_block (the custom VJP),
-    conv0 as flax's layers; on the CPU the 'cuda' backend runs the
-    conv_block Function around the kernel wrapper's plain version."""
+    """Under block_rules="pallas", blocks 1-3 differentiate as JAX's
+    reference_block (the custom VJP), conv0 as flax's layers; on the CPU
+    the 'cuda' backend runs the conv_block Function around the kernel
+    wrapper's plain version."""
     params, x, ref = full_width_grads
     assert float(np.mean(x == 0)) > 0.9  # Pong: mostly exact zeros
+    net = _port(6, 16, 84, params, conv_backend=conv_backend, block_rules="pallas")
+    errs = _rel_l2_per_leaf(_sq_loss_grads_port(net, x), ref)
+    _assert_within_bounds(errs)
+
+
+@pytest.mark.parametrize("conv_backend", ["torch", "cuda"])
+def test_full_width_gradients_match_jax_default_model(full_width_grads_xla, conv_backend):
+    """The port's default model differentiates every block as flax's
+    layers, as JAX's default (xla) model does; on Pong frames the ties make
+    the other rules miss (the next test)."""
+    params, x, ref = full_width_grads_xla
     net = _port(6, 16, 84, params, conv_backend=conv_backend)
     errs = _rel_l2_per_leaf(_sq_loss_grads_port(net, x), ref)
     _assert_within_bounds(errs)
+
+
+def test_block_rules_change_the_gradients_not_the_forward(full_width_grads_xla):
+    """On Pong frames the pallas rules' gradients leave the default model's
+    bounds (Conv_1's bias by far), while the forward is the same function."""
+    params, x, ref = full_width_grads_xla
+    nets = {r: _port(6, 16, 84, params, block_rules=r) for r in ("xla", "pallas")}
+    with torch.no_grad():
+        outs = {r: n(torch.from_numpy(x)) for r, n in nets.items()}
+    assert torch.equal(outs["xla"].logits, outs["pallas"].logits)
+    errs = _rel_l2_per_leaf(_sq_loss_grads_port(nets["pallas"], x), ref)
+    assert errs["['Conv_1']['bias']"] > 3 * CONV_BIAS_REL_L2, errs
 
 
 def test_narrow_width_gradients_follow_flax_rules_in_every_block():
