@@ -23,8 +23,13 @@ frames, ``BatchedPredictor`` serving block and single-row requests,
 the learner through the conv-block kernels forward and backward, under the
 default ``block_rules="xla"``), and ``[resume]``: a run kept in checkpoints,
 resumed with ``--load`` under a ``hyper.txt`` learning rate of 0, and
-evaluated and played with ``--load``. An ``[env]`` line first records which
-of pyzmq, msgpack, tensorboard and gymnasium the machine has (informational).
+evaluated and played with ``--load``; and ``[sync]``: ``--task train
+--trainer tpu_sync_ba3c`` (the JAX CLI's default) with 4 native Pong env
+servers of 16 envs over the block-shm wire, the batched predictor serving
+them, and the learner at B=128, for 2 epochs, then a ``--load`` resume,
+then 8 python FakeEnv simulators over the per-env wire with the greedy
+Evaluator. An ``[env]`` line first records which of pyzmq, msgpack,
+tensorboard and gymnasium the machine has (informational).
 Every phase must pass; any failure exits nonzero and prints no result.
 
 The last lines of standard output are: the card's name and power limit (as
@@ -123,8 +128,8 @@ def phase_build():
 
 
 KERNEL_SOURCES = ("conv_block", "conv_block_bwd")
-KERNEL_BATCHES = (1, 3, B, TRAIN_B)  # B=1 and 3 catch ragged-edge and tail faults
-BWD_BATCHES = (1, 3, TRAIN_B)
+KERNEL_BATCHES = (1, 3, 128, B, TRAIN_B)  # B=1 and 3 catch ragged-edge and tail faults;
+BWD_BATCHES = (1, 3, 128, TRAIN_B)        # 128 is the sync learner's batch
 DZ_MISMATCH = 1e-3  # share of dz elements the route may route otherwise than cuDNN's z
 TIMED_BATCHES = (B, TRAIN_B)
 
@@ -689,7 +694,8 @@ def pong_train_states(dev, n_envs: int = TRAIN_ENVS, steps: int = TRAIN_T, seed:
 
 def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
     """The conv_block Function (kernel forward; backward the route, dgrad
-    and wgrad kernels) per block at B=2560, as the learner runs it under
+    and wgrad kernels) per block at B = len(states) (2560, the fused
+    learner chunk; 128, the sync learner's batch), as the learner runs it under
     ``block_rules=rules``, against the plain block under autograd on the
     same inputs, with its time; with ``detail`` also the times of the plain
     block and of the library's F.conv2d + relu + F.max_pool2d under
@@ -710,14 +716,15 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
         wgrad_plain,
     )
 
+    nb = states.shape[0]
     g = torch.Generator().manual_seed(1)
-    x = (states.reshape(TRAIN_B, 84, 84 * 4).to(torch.bfloat16) / 255.0).contiguous()
+    x = (states.reshape(nb, 84, 84 * 4).to(torch.bfloat16) / 255.0).contiguous()
     rows = []
     saved = launch_counts()
     for i, s, plain, x_grad in vjp_cases(rules):
         w = (torch.randn((s.kh, s.kw, s.Ci, s.Co), generator=g) * 0.1).to(torch.bfloat16).to(dev)
         b = (torch.randn((s.Co,), generator=g) * 0.05).to(torch.bfloat16).to(dev)
-        gy = torch.randn((TRAIN_B, s.Ho, s.Wo * s.Co), generator=g).to(torch.bfloat16).to(dev)
+        gy = torch.randn((nb, s.Ho, s.Wo * s.Co), generator=g).to(torch.bfloat16).to(dev)
 
         def run(fn, x=x, w=w, b=b, gy=gy, x_grad=x_grad):
             leaves = [x.detach().requires_grad_(x_grad), w.detach().requires_grad_(True),
@@ -731,10 +738,10 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
         pad = (s.pw, s.kw - 1 - s.pw, s.ph, s.kh - 1 - s.ph)
 
         def fn_library(xx, ww, bb, s=s, pad=pad):
-            x4 = xx.reshape(TRAIN_B, s.H, s.W, s.Ci).permute(0, 3, 1, 2)
+            x4 = xx.reshape(nb, s.H, s.W, s.Ci).permute(0, 3, 1, 2)
             y = F.relu(F.conv2d(F.pad(x4, pad), ww.permute(3, 2, 0, 1), bb))
             y = F.max_pool2d(y, 2) if s.pool else y
-            return y.permute(0, 2, 3, 1).reshape(TRAIN_B, s.Ho, s.Wo * s.Co)
+            return y.permute(0, 2, 3, 1).reshape(nb, s.Ho, s.Wo * s.Co)
 
         got, ref = run(fn_kernel), run(fn_plain)
         torch.cuda.synchronize()
@@ -742,7 +749,7 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
         scales = [float(r.float().abs().max()) for r in ref]
         names = ["y"] + (["dx"] if x_grad else []) + ["dw", "db"]
         ok = all(e <= REL_TOL * max(sc, 1e-6) for e, sc in zip(errs, scales))
-        log(f"[vjp] block{i} ({plain.__name__} rules) B={TRAIN_B}: "
+        log(f"[vjp] block{i} ({plain.__name__} rules) B={nb}: "
             + " ".join(f"{n} max|d|={e:.4g} (max|ref| {sc:.4g})" for n, e, sc in zip(names, errs, scales))
             + (" ok" if ok else " FAIL"))
         if not ok:
@@ -753,11 +760,11 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
         # it is computed
         n_bytes = 2 * (x.numel() + w.numel() + b.numel() + gy.numel()
                        + gy.numel() + w.numel() + b.numel() + x.numel() * x_grad)
-        n_ops = (2 + x_grad) * TRAIN_B * needed_flops(s)
+        n_ops = (2 + x_grad) * nb * needed_flops(s)
         row = {
             "block": f"block{i}",
             "rules": plain.__name__,
-            "shape": [TRAIN_B, s.H, s.W, s.Ci, s.Co, s.kh, int(s.pool)],
+            "shape": [nb, s.H, s.W, s.Ci, s.Co, s.kh, int(s.pool)],
             "max_abs_err": max(errs),
             "max_abs_err_by_output": dict(zip(names, errs)),
             "ms": time_ms(lambda: run(fn_kernel), iters=5, warmup=2),
@@ -788,7 +795,7 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
                 dz_nchw, x_nchw, w_oihw, [s.Co], [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
 
         n_x, n_dz = x.numel() * x.element_size(), dz.numel() * 2
-        ops = TRAIN_B * needed_flops(s)
+        ops = nb * needed_flops(s)
         kern = {
             "route": {
                 "ms": time_ms(lambda: conv_block_route(x, w, b, gy, s, plain), iters=5, warmup=2),
@@ -811,7 +818,7 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
                 **bound(n_dz + 2 * w.numel() + n_x, ops),
             }
         row["bwd_kernels"] = kern
-        log(f"[vjp] block{i} backward kernels at B={TRAIN_B}: " + "; ".join(
+        log(f"[vjp] block{i} backward kernels at B={nb}: " + "; ".join(
             f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
             f"{'-' if v['library_ms'] is None else format(v['library_ms'], '.4f')}, bound "
             f"{v['bound_ms']:.4f} {v['bound_by']}, {100 * v['bound_ms'] / v['ms']:.1f}% of it)"
@@ -846,7 +853,8 @@ def _rel_l2(got, ref):
 
 
 def phase_train_grads(dev, states):
-    """One learner chunk (B=2560 Pong states) through BA3CNet(6) at full
+    """One learner chunk (B = len(states) Pong states: 2560, the fused
+    trainer's; 128, the sync trainer's) through BA3CNet(6) at full
     width: the gradients with conv_backend="cuda" (the kernel forward and
     the backward kernels) against conv_backend="torch" (the plain blocks
     under autograd), and each one's peak device memory
@@ -855,12 +863,13 @@ def phase_train_grads(dev, states):
     import torch
 
     from distributed_ba3c_tpu_torch.config import BA3CConfig
-    from distributed_ba3c_tpu_torch.fused.loop import learner_grads
+    from distributed_ba3c_tpu_torch.parallel.train_step import learner_grads
     from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
 
+    n = states.shape[0]
     g = torch.Generator(device=dev).manual_seed(2)
-    actions = torch.randint(0, 6, (TRAIN_B,), generator=g, device=dev)
-    returns = torch.randn((TRAIN_B,), generator=g, device=dev)
+    actions = torch.randint(0, 6, (n,), generator=g, device=dev)
+    returns = torch.randn((n,), generator=g, device=dev)
     grads, aux, peak = {}, {}, {}
     for backend in ("cuda", "torch"):
         net = BA3CNet(6, conv_backend=backend, device=dev,
@@ -869,7 +878,7 @@ def phase_train_grads(dev, states):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         gs, loss = learner_grads(net, BA3CConfig(), states, actions, returns, 0.01,
-                                 grad_chunk_samples=TRAIN_B)
+                                 grad_chunk_samples=n)
         torch.cuda.synchronize()
         peak[backend] = torch.cuda.max_memory_allocated(dev)
         grads[backend] = {k: gr for (k, _), gr in zip(net.named_parameters(), gs)}
@@ -877,7 +886,7 @@ def phase_train_grads(dev, states):
         del net, gs, loss
     errs = _rel_l2(grads["cuda"], grads["torch"])
     worst = max(errs, key=errs.get)
-    log(f"[train] learner chunk B={TRAIN_B} gradients (block_rules={rules}), kernels vs plain blocks: "
+    log(f"[train] learner chunk B={n} gradients (block_rules={rules}), kernels vs plain blocks: "
         f"worst rel-L2 {errs[worst]:.3e} ({worst}); loss {aux['cuda']:.6f} vs {aux['torch']:.6f}; "
         f"peak memory {peak['cuda'] / 2**30:.3f} GiB vs {peak['torch'] / 2**30:.3f} GiB")
     if not all(torch.isfinite(v).all() for v in grads["cuda"].values()):
@@ -927,9 +936,9 @@ def phase_train_step(dev):
     from distributed_ba3c_tpu_torch.fused.loop import (
         push_frame,
         create_fused_state,
-        learner_grads,
         make_fused_step,
     )
+    from distributed_ba3c_tpu_torch.parallel.train_step import learner_grads
     from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
     cfg = BA3CConfig(batch_size=TRAIN_B)
     net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(0))
@@ -1172,6 +1181,308 @@ def phase_resume(dev, states):
     return {"wall_s": wall, "launches": launches, "checks": checks}
 
 
+SYNC_B = 128          # the sync learner's batch (the config's batch_size)
+SYNC_STEPS = 100      # learner steps per epoch of the [sync] runs
+SYNC_SIMS = 64        # envs of the cpp:pong fleet: 4 env servers x 16
+SYNC_BUCKETS = 5      # warmup(): the pow-2 buckets 1..16 of predict_batch_size 16
+SYNC_SERVE_B = 16     # a served batch: one env server's block (predict_batch_size)
+
+
+def _tele(role: str) -> dict:
+    from distributed_ba3c_tpu_torch import telemetry
+
+    return telemetry.registry(role).scalars()
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in after.items()}
+
+
+def _hist_p99_us(role: str, name: str) -> float:
+    """The upper edge, in us, of the log2 bucket holding the 99th
+    percentile of a histogram (its resolution is a factor of two)."""
+    from distributed_ba3c_tpu_torch import telemetry
+
+    h = telemetry.registry(role).histogram(name)
+    counts, total, seen = h.buckets(), h.count, 0
+    for i, c in enumerate(counts):
+        seen += c
+        if total and seen >= 0.99 * total:
+            return h.unit * 2 ** i * 1e6
+    return float("nan")
+
+
+def _sync_run(argv, dev):
+    """One ``--trainer tpu_sync_ba3c`` CLI run: its wall time, its launches
+    and the telemetry deltas of every role it feeds. The histograms it
+    reads (step_s, feed_wait_s, serve_latency_s) are reset first."""
+    from distributed_ba3c_tpu_torch import telemetry
+    from distributed_ba3c_tpu_torch.cli import main as cli_main
+
+    for role, name in (("learner", "step_s"), ("learner", "feed_wait_s"),
+                       ("predictor", "serve_latency_s")):
+        telemetry.registry(role).histogram(name).reset()
+    roles = ("learner", "predictor", "master", "fleet")
+    before = {r: _tele(r) for r in roles}
+    set_launch_counts({k: 0 for k in COUNTED})
+    t0 = time.perf_counter()
+    rc = cli_main([*argv, "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[sync] {argv} returned {rc}")
+    out = {"wall_s": wall, "launches": launch_counts(),
+           **{r: _delta(_tele(r), before[r]) for r in roles}}
+    out["serve_p99_us"] = _hist_p99_us("predictor", "serve_latency_s")
+    # the counters as the last epoch's stat.json record holds them: before
+    # the teardown, where stopping the predictor sheds what is still queued
+    with open(os.path.join(argv[argv.index("--logdir") + 1], "stat.json")) as f:
+        last = json.load(f)[-1]
+    out["at_last_epoch"] = {
+        r: {k: last[f"tele/{r}/{k}"] - before[r].get(k, 0.0)
+            for k in _tele(r) if f"tele/{r}/{k}" in last}
+        for r in roles}
+    return out
+
+
+def _sync_checks(run, steps: int, exact_serving: bool):
+    """The [sync] invariants of one run (see phase_sync)."""
+    L, P, M = run["launches"], run["predictor"], run["master"]
+    batches = int(P["batches_total"])
+    want = {"conv_block_vjp": 4 * steps, "conv_block_route": 4 * steps,
+            "conv_block_dgrad": 3 * steps, "conv_block_wgrad": 4 * steps}
+    got = {k: L[k] for k in want}
+    if got != want:
+        raise AssertionError(f"[sync] backward launches {got}, expected {want} (4/4/3/4 a step)")
+    serve_fwd = L["conv_block_fwd"] - 4 * steps
+    if exact_serving and serve_fwd != 4 * (batches + SYNC_BUCKETS):
+        raise AssertionError(
+            f"[sync] {L['conv_block_fwd']} forward launches: not 4 a learner step ({steps}) "
+            f"+ 4 a served batch ({batches}) + 4 a warmup bucket ({SYNC_BUCKETS})")
+    if serve_fwd < 4 * batches:
+        raise AssertionError(f"[sync] {serve_fwd} serving forwards for {batches} batches")
+    if P["param_publishes_total"] < steps:  # --publish_every 1
+        raise AssertionError(f"[sync] {P['param_publishes_total']} publishes for {steps} steps")
+    if M["datapoints_total"] < steps * SYNC_B:
+        raise AssertionError(f"[sync] {M['datapoints_total']} datapoints for {steps} steps")
+    for k in ("corrupt_frames_total", "clients_dropped_total", "blocks_rejected_total"):
+        if M.get(k, 0):
+            raise AssertionError(f"[sync] master {k} = {M[k]}")
+    # a shed row is answered with a uniform-random action, and a callback
+    # that raised is logged and skipped: either would let a broken plane
+    # pass. Read up to the last epoch's end: the teardown sheds by design
+    end = run["at_last_epoch"]
+    for role, k in (("master", "predictor_shed_fallbacks_total"),
+                    ("predictor", "sheds_total"), ("predictor", "callback_errors_total")):
+        if k not in end[role]:
+            raise AssertionError(f"[sync] stat.json holds no tele/{role}/{k}")
+        if end[role][k]:
+            raise AssertionError(f"[sync] {role} {k} = {end[role][k]} by the last epoch's end")
+    if P.get("callback_errors_total", 0):
+        raise AssertionError(f"[sync] predictor callback_errors_total = {P['callback_errors_total']}")
+
+
+def _sync_numbers(run, steps: int) -> dict:
+    """The card's numbers of one run, from its telemetry."""
+    Lr, P, F, M = run["learner"], run["predictor"], run["fleet"], run["master"]
+    wall = run["wall_s"]
+    step_s = Lr["step_s_sum"] / max(Lr["step_s_count"], 1)
+    return {
+        "steps": steps,
+        "wall_s": wall,
+        "learner_step_host_ms": 1e3 * step_s,
+        "feed_wait_share": Lr["feed_wait_s_sum"] / max(Lr["step_s_sum"], 1e-12),
+        "predictor_rows_per_s": P["rows_total"] / wall,
+        "rows_per_batch": P["rows_total"] / max(P["batches_total"], 1),
+        "serve_mean_ms": 1e3 * P["serve_latency_s_sum"] / max(P["serve_latency_s_count"], 1),
+        "serve_p99_ms_upper": run["serve_p99_us"] / 1e3,
+        "fleet_env_steps_per_s": F.get("env_steps_total", 0.0) / wall,
+        "datapoints_per_s": M["datapoints_total"] / wall,
+        "blocked_puts": M.get("queue_blocked_puts_total", 0.0),
+    }
+
+
+def phase_sync(dev, states):
+    """The sync trainer through its entry point at full width:
+    ``--trainer tpu_sync_ba3c --env cpp:pong --wire block-shm
+    --simulator_procs 64 --batch_size 128`` (4 native env servers of 16
+    envs, BA3CNet(6), fc 512) for 2 epochs of SYNC_STEPS steps, then a
+    ``--load`` resume for one more epoch in the same logdir; then a short
+    ``--env fake --wire per-env`` run of 8 python simulators with the
+    greedy Evaluator. Each run: 4 forward, 4 route, 3 dgrad and 4 wgrad
+    launches a learner step, 4 forwards a served batch (exactly, on the
+    eval-free runs), block-shm messages and no corrupt frame or dropped
+    client, no shed row and no failed callback up to the last epoch's end,
+    a publish a step, SYNC_B datapoints a step. Then a B=128 learner
+    batch's gradients, kernels against plain blocks, the kernels timed at
+    the path's batches (B=16 served, B=128 learned), and the learner step
+    timed on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distributed_ba3c_tpu_torch.config import BA3CConfig
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+    from distributed_ba3c_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    base = ["--task", "train", "--trainer", "tpu_sync_ba3c", "--batch_size", str(SYNC_B),
+            "--steps_per_epoch", str(SYNC_STEPS), "--nr_eval", "0"]
+    pong = ["--env", "cpp:pong", "--wire", "block-shm", "--simulator_procs", str(SYNC_SIMS)]
+    with tempfile.TemporaryDirectory() as logdir:
+        first = _sync_run([*base, *pong, "--max_epoch", "2", "--logdir", logdir], dev)
+        with open(os.path.join(logdir, "stat.json")) as f:
+            stats = json.load(f)
+        resumed = _sync_run([*base, *pong, "--max_epoch", "1", "--logdir", logdir,
+                             "--load", os.path.join(logdir, "checkpoints")], dev)
+        with open(os.path.join(logdir, "stat.json")) as f:
+            all_stats = json.load(f)
+        with open(os.path.join(logdir, "checkpoints", "checkpoint.json")) as f:
+            ckpt = json.load(f)
+    steps = [r["global_step"] for r in all_stats]
+    log(f"[sync] cpp:pong block-shm: global_step per epoch {steps}; checkpoint latest "
+        f"{ckpt['latest']}")
+    if steps != [SYNC_STEPS, 2 * SYNC_STEPS, 3 * SYNC_STEPS] or ckpt["latest"] != 3 * SYNC_STEPS:
+        raise AssertionError("[sync] the --load run did not continue at the saved step")
+    for rec in all_stats:
+        for k in ("loss", "entropy", "grad_norm"):
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"[sync] epoch {rec['epoch']}: {k} = {rec[k]}")
+    for run in (first, resumed):
+        if run["master"]["block_shm_msgs_total"] <= 0:
+            raise AssertionError("[sync] no block-shm message reached the master")
+    _sync_checks(first, 2 * SYNC_STEPS, exact_serving=True)
+    _sync_checks(resumed, SYNC_STEPS, exact_serving=True)
+
+    with tempfile.TemporaryDirectory() as logdir:
+        fake = _sync_run([*base[:-2], "--env", "fake", "--wire", "per-env",
+                          "--simulator_procs", "8", "--steps_per_epoch", "20",
+                          "--max_epoch", "1", "--nr_eval", "4", "--logdir", logdir], dev)
+        with open(os.path.join(logdir, "stat.json")) as f:
+            fake_stats = json.load(f)
+    if fake["master"]["per_env_msgs_total"] <= 0 or "eval_mean_score" not in fake_stats[-1]:
+        raise AssertionError("[sync] fake/per-env run: no per-env message or no eval")
+    _sync_checks(fake, 20, exact_serving=False)
+
+    numbers = {"first": _sync_numbers(first, 2 * SYNC_STEPS),
+               "resumed": _sync_numbers(resumed, SYNC_STEPS),
+               "fake_per_env": _sync_numbers(fake, 20)}
+    numbers["fps"] = [r["fps"] for r in all_stats]
+    numbers["train_queue_depth"] = [r.get("tele/master/train_queue_depth") for r in all_stats]
+    for name, n in numbers.items():
+        if isinstance(n, dict):
+            log(f"[sync] {name}: " + ", ".join(
+                f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in n.items()))
+    log(f"[sync] stat.json fps {numbers['fps']}; train_queue_depth at epoch ends "
+        f"{numbers['train_queue_depth']}; fake eval_mean_score "
+        f"{fake_stats[-1]['eval_mean_score']:.3f}")
+
+    # a B=128 learner batch: kernels against plain blocks, and its time
+    x = torch.from_numpy(np.concatenate(states)[:SYNC_B]).to(dev)
+    grad = phase_train_grads(dev, x)
+    # the kernels at this path's own batches: the learner's forward and
+    # backward of the four blocks at B=128, a served batch's forward (the
+    # model path's blocks) at B=16 and B=128
+    saved = launch_counts()
+    vjp = phase_vjp(dev, x)
+    fwd_rows, _ = phase_kernels(dev, batches=(SYNC_SERVE_B, SYNC_B),
+                                timed_batches=(SYNC_SERVE_B, SYNC_B))
+    set_launch_counts(saved)
+    kernel_ms = {f"fwd_b{nb}": sum(r["ms"] for r in rows if r["block"] != "block0_uint8")
+                 for nb, rows in fwd_rows.items()}
+    kernel_ms[f"fwd_bwd_b{SYNC_B}"] = sum(r["ms"] for r in vjp)
+    kernel_ms[f"plain_fwd_bwd_b{SYNC_B}"] = sum(r["plain_ms"] for r in vjp)
+    kernel_ms[f"library_fwd_bwd_b{SYNC_B}"] = sum(r["library_ms"] for r in vjp)
+    numbers["kernel_ms"] = kernel_ms
+    log("[sync] the kernels at the sync batches (CUDA events, the four blocks summed): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in kernel_ms.items()))
+    cfg = BA3CConfig(batch_size=SYNC_B)
+    net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(net, cfg)
+    step = make_train_step(net, state.optimizer, cfg)
+    g = torch.Generator(device=dev).manual_seed(3)
+    batch = {"state": x, "action": torch.randint(0, 6, (SYNC_B,), generator=g, device=dev),
+             "return": torch.randn((SYNC_B,), generator=g, device=dev)}
+    saved = launch_counts()
+    numbers["learner_step_device_ms"] = time_ms(lambda: step(state, batch, 0.01, 0.0), iters=20)
+    set_launch_counts(saved)
+    log(f"[sync] learner step at B={SYNC_B} on the card (CUDA events, lr 0): "
+        f"{numbers['learner_step_device_ms']:.4f} ms")
+    numbers["plane_alone"] = phase_plane_alone(dev)
+    return {"launches": {"train": first["launches"], "resumed": resumed["launches"],
+                         "fake": fake["launches"]},
+            "numbers": numbers, "grad_rel_l2_b128": grad["rel_l2"]}
+
+
+def phase_plane_alone(dev, seconds: float = 5.0) -> dict:
+    """The [sync] run's actor plane without its learner: the cpp:pong fleet
+    (4 block-shm env servers of 16 envs), the master and the predictor,
+    the train queue drained by a thread that only counts. Its rates, set
+    against the full run's, give what the learner's thread costs the plane
+    (they share one interpreter)."""
+    import tempfile
+    import threading
+
+    import torch
+
+    from distributed_ba3c_tpu_torch.actors.master import BA3CSimulatorMaster
+    from distributed_ba3c_tpu_torch.cli import _sync_fleet, build_config, make_parser
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+    from distributed_ba3c_tpu_torch.predict.server import BatchedPredictor
+
+    args = make_parser().parse_args(["--env", "cpp:pong", "--wire", "block-shm",
+                                     "--simulator_procs", str(SYNC_SIMS)])
+    cfg = build_config(args)
+    net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(0))
+    pred = BatchedPredictor(BA3CNet(6, device=dev), net.state_dict(),
+                            batch_size=cfg.predict_batch_size, device=dev)
+    pred.warmup(cfg.state_shape)
+    with tempfile.TemporaryDirectory() as d:
+        c2s, s2c = f"ipc://{d}/c2s", f"ipc://{d}/s2c"
+        master = BA3CSimulatorMaster(c2s, s2c, pred, local_time_max=cfg.local_time_max)
+        master.feed_batch = SYNC_B
+        procs = _sync_fleet(args, cfg, c2s, s2c, master)
+        stop, drained = threading.Event(), [0]
+
+        def drain():
+            while not stop.is_set():
+                try:
+                    master.queue.get(timeout=0.2)
+                    drained[0] += 1
+                except Exception:
+                    pass
+
+        t = threading.Thread(target=drain, daemon=True)
+        pred.start()
+        master.start()
+        t.start()
+        for p in procs:
+            p.start()
+        try:
+            time.sleep(2.0)  # the servers' start
+            before, n0, t0 = _tele("predictor"), drained[0], time.perf_counter()
+            time.sleep(seconds)
+            after, n1, wall = _tele("predictor"), drained[0], time.perf_counter() - t0
+        finally:
+            stop.set()
+            for p in procs:
+                p.terminate()
+            for p in procs:
+                p.join(10)
+            master.close()
+            pred.stop()
+            pred.join(5)
+    d = _delta(after, before)
+    out = {"wall_s": wall, "predictor_rows_per_s": d["rows_total"] / wall,
+           "rows_per_batch": d["rows_total"] / max(d["batches_total"], 1),
+           "serve_mean_ms": 1e3 * d["serve_latency_s_sum"] / max(d["serve_latency_s_count"], 1),
+           "datapoints_per_s": (n1 - n0) / wall}
+    log("[sync] actor plane alone (no learner): " + ", ".join(f"{k} {v:.6g}" for k, v in out.items()))
+    return out
+
+
 #: the launch counts the paths are read by: each kernel wrapper's, and
 #: conv_block's backward passes on the card (conv_block_vjp)
 COUNTED = ("conv_block_fwd", "conv_block_vjp", "conv_block_route", "conv_block_dgrad",
@@ -1211,6 +1522,11 @@ def main(argv=None) -> int:
     ap.add_argument("--parity", action="store_true",
                     help="only build the kernels and hold each against its plain "
                          "version (a new kernel's first call); prints no result")
+    ap.add_argument("--sync-probe", metavar="S[:P],...",
+                    help="only build and run the [sync] cpp:pong run (one epoch) under "
+                         "each interpreter switch interval S (seconds) and "
+                         "--predict_batch_size P (default 16), then the actor plane "
+                         "without its learner; prints no result")
     ap.add_argument("--kernel-times", metavar="B,B,...",
                     help="only build, hold every block's forward against its plain "
                          "version and time it and each backward kernel at these "
@@ -1237,6 +1553,25 @@ def main(argv=None) -> int:
     probe = phase_env_probe(card)
 
     phase_build()
+    if args.sync_probe:
+        import tempfile
+
+        for entry in args.sync_probe.split(","):
+            interval, _, pbs = entry.partition(":")
+            interval, pbs = float(interval), int(pbs or 16)
+            sys.setswitchinterval(interval)
+            with tempfile.TemporaryDirectory() as logdir:
+                run = _sync_run(["--task", "train", "--trainer", "tpu_sync_ba3c",
+                                 "--batch_size", str(SYNC_B), "--steps_per_epoch",
+                                 str(SYNC_STEPS), "--nr_eval", "0", "--env", "cpp:pong",
+                                 "--wire", "block-shm", "--simulator_procs", str(SYNC_SIMS),
+                                 "--predict_batch_size", str(pbs),
+                                 "--max_epoch", "1", "--logdir", logdir], dev)
+            log(f"[sync-probe] switch interval {interval} s, predict_batch_size {pbs}: " + ", ".join(
+                f"{k} {v:.6g}" for k, v in _sync_numbers(run, SYNC_STEPS).items()))
+        sys.setswitchinterval(0.005)
+        phase_plane_alone(dev)
+        return 0
     if args.parity:
         phase_kernels(dev, timed_batches=())
         phase_bwd_kernels(dev)
@@ -1304,10 +1639,15 @@ def main(argv=None) -> int:
             raise AssertionError(f"[resume] {part} --load never launched conv_block_fwd")
     resume_fwd = sum(v["conv_block_fwd"] for v in resume["launches"].values())
 
+    sync = phase_sync(dev, states)
+    sync_launches = {k: sum(v[k] for v in sync["launches"].values()) for k in COUNTED}
+
     path = [r for r in rows if r["block"] != "block0_uint8"]
     fwd_by_path = {"serve": serve_launches, "play": play_launches,
-                   "train": train_launches["conv_block_fwd"], "resume": resume_fwd}
-    bwd_by_path = {k: {"train": train_launches[k], "resume": resume["launches"]["train"][k]}
+                   "train": train_launches["conv_block_fwd"], "resume": resume_fwd,
+                   "sync": sync_launches["conv_block_fwd"]}
+    bwd_by_path = {k: {"train": train_launches[k], "resume": resume["launches"]["train"][k],
+                       "sync": sync_launches[k]}
                    for k in COUNTED if k != "conv_block_fwd"}
     bwd_src = "distributed_ba3c_tpu_torch/csrc/conv_block_bwd.cu"
     kernels = [{
@@ -1371,7 +1711,7 @@ def main(argv=None) -> int:
     log(json.dumps({"serving": serve, "model_forward_ms": fwd, "play_launches": play_launches,
                     "train": {"cli": train, "step": step, "grad_rel_l2": grad["rel_l2"],
                               "learner_peak_bytes": grad["peak_bytes"]},
-                    "resume": resume, "packages": probe}))
+                    "resume": resume, "sync": sync, "packages": probe}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -14,5 +14,10 @@ play|eval`` (cli.py); and the training path -- the fused trainer
 (fused/loop.py, ``--task train --trainer tpu_fused_ba3c --env jax:pong``)
 on device Pong (envs/jaxenv/), with the conv block's custom VJP
 (``ops/conv_block.py::conv_block``), the loss, returns and optimizer
-(ops/).
+(ops/); and the sync trainer with its ZMQ actor plane (``--task train
+--trainer tpu_sync_ba3c``, the default): env-server processes
+(envs/native.py, actors/simulator.py), the n-step master
+(actors/master.py), the train feed and pinned staging (data/), the
+learner step (parallel/train_step.py) and the trainer with its callbacks
+(train/).
 """

@@ -1,9 +1,12 @@
 """Command line of the port: train, eval and play of a BA3C policy.
 
 Port of the JAX package's ``cli.py``: ``--task train`` with ``--trainer
-tpu_fused_ba3c`` (``_run_fused``), ``--task eval`` (``_run_eval``) and
-``--task play`` (``_run_play``)::
+tpu_sync_ba3c`` (the default: the ZMQ actor plane and the synchronous
+learner, ``_run_sync``) or ``tpu_fused_ba3c`` (the fused on-device
+rollout+update), ``--task eval`` (``_run_eval``) and ``--task play``
+(``_run_play``)::
 
+    python -m distributed_ba3c_tpu_torch --env cpp:pong
     python -m distributed_ba3c_tpu_torch --task train --trainer tpu_fused_ba3c --env jax:pong
     python -m distributed_ba3c_tpu_torch --task play --env cpp:pong
     python -m distributed_ba3c_tpu_torch --task eval --env fake --nr_eval 8
@@ -12,7 +15,14 @@ Everything runs on ``--device`` (``cuda`` by default; a missing card
 raises). eval and play serve the policy through :class:`BatchedPredictor`
 (``predict_batch``, greedy), with the params of the latest checkpoint in
 ``--load <logdir>/checkpoints``, or of a seeded init (``--seed``) without
-it. ``--task train --load`` resumes a fused run from its checkpoints.
+it. ``--task train --load`` resumes a run from its checkpoints.
+
+The sync trainer runs one local fleet (``fake`` simulators or ``cpp:``
+env servers) started with the trainer, as Tensorpack did; the JAX CLI's
+fleet supervision and autoscaling, ``--fleets``, remote fleets
+(``--env zmq:``), ``gym:``/``jax:`` players, the serving plane's replicas,
+canary and shadow policies, and the tracing plane are not ported yet
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -23,24 +33,25 @@ from typing import Optional
 
 from distributed_ba3c_tpu_torch.config import BA3CConfig
 
-#: the JAX CLI's trainers, and what each waits for in the port
+#: the JAX CLI's trainers, and what each waits for in the port (None: ported)
 TRAINERS = {
+    "tpu_sync_ba3c": None,
     "tpu_fused_ba3c": None,
-    "tpu_sync_ba3c": "ROADMAP queue A item 3 (the sync trainer and the ZMQ actor plane)",
-    "tpu_vtrace_ba3c": "ROADMAP queue A item 4 (the V-trace trainer, after item 3's actor plane)",
+    "tpu_vtrace_ba3c": "ROADMAP queue A item 4 (the V-trace trainer)",
 }
 
 
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m distributed_ba3c_tpu_torch",
-        description="Greedy eval/play of a BA3C policy on an H100 (PyTorch/CUDA)",
+        description="Train, eval and play a BA3C policy on an H100 (PyTorch/CUDA)",
     )
-    p.add_argument("--task", default="eval", choices=["train", "eval", "play"])
+    p.add_argument("--task", default="train", choices=["train", "eval", "play"])
     p.add_argument(
         "--trainer", default="tpu_sync_ba3c", choices=sorted(TRAINERS),
-        help="learner backend for --task train; only tpu_fused_ba3c (the "
-        "fused on-device rollout+update) is ported",
+        help="learner backend for --task train: tpu_sync_ba3c (the ZMQ "
+        "actor plane and the synchronous learner) or tpu_fused_ba3c (the "
+        "fused on-device rollout+update); tpu_vtrace_ba3c is not ported yet",
     )
     p.add_argument(
         "--env", default="fake",
@@ -49,8 +60,9 @@ def make_parser() -> argparse.ArgumentParser:
         "env of the fused trainer)",
     )
     p.add_argument(
-        "--nr_eval", type=int, default=8,
-        help="episodes to run (eval/play); greedy-eval envs (train)",
+        "--nr_eval", type=int, default=None,
+        help="episodes to run (eval/play, default 8); greedy-eval episodes "
+        "(train, 0 = no eval)",
     )
     p.add_argument(
         "--max_steps", type=int, default=None,
@@ -59,7 +71,38 @@ def make_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--predict_batch_size", type=int, default=None,
-        help="serving bucket (default: nr_eval for eval, 1 for play)",
+        help="serving bucket (default: nr_eval for eval, 1 for play, the "
+        "config's 16 for the sync trainer)",
+    )
+    # -- the sync trainer's actor plane (the JAX CLI's names and defaults) ---
+    p.add_argument("--simulator_procs", type=int, default=None,
+                   help="envs of the local fleet (config default 50)")
+    p.add_argument("--local_time_max", type=int, default=None, help="n-step truncation")
+    p.add_argument("--predictor_threads", type=int, default=None,
+                   help="accepted as the JAX CLI accepts it; no effect (the "
+                        "predictor's continuous-batching scheduler is one thread)")
+    p.add_argument("--frame_history", type=int, default=None)
+    p.add_argument(
+        "--wire", default="auto", choices=["auto", "block-shm", "block", "per-env"],
+        help="cpp: env servers' wire: block-shm (obs through a /dev/shm "
+        "ring), block (one zero-copy multipart message per server step), "
+        "per-env (B msgpack messages per step); auto = block-shm where "
+        "/dev/shm is writable, else block. fake simulators speak per-env",
+    )
+    p.add_argument(
+        "--wire_crc", action="store_true",
+        help="CRC32 framing on every wire codec (exported as BA3C_WIRE_CRC=1 "
+        "to the spawned env servers)",
+    )
+    p.add_argument("--pipe_c2s", default=None, help="master experience-plane bind address (default: per-pid ipc://)")
+    p.add_argument("--pipe_s2c", default=None, help="master action-plane bind address (default: per-pid ipc://)")
+    p.add_argument("--actor_timeout", type=float, default=120.0, help="seconds of actor silence before its state is dropped (0=off)")
+    p.add_argument("--publish_every", type=int, default=1, help="params -> predictor every N learner steps")
+    p.add_argument(
+        "--ingest_staging", default="on", choices=["on", "off"],
+        help="on: collate into pinned staging slots and issue the next "
+        "batch's H2D behind the running step (data/staging.py); off: "
+        "collate fresh arrays and copy them at the head of the step",
     )
     p.add_argument(
         "--rollout_dtype", default="float32", choices=["float32", "bfloat16"],
@@ -131,7 +174,8 @@ def build_config(args) -> BA3CConfig:
     over = {"num_actions": env_num_actions(args)}
     for f in (
         "learning_rate entropy_beta gamma batch_size fc_units grad_clip_norm "
-        "adam_epsilon reward_clip"
+        "adam_epsilon reward_clip local_time_max simulator_procs "
+        "predict_batch_size predictor_threads frame_history"
     ).split():
         v = getattr(args, f)
         if v is not None:
@@ -160,6 +204,223 @@ def _build_player_factory(args, cfg: BA3CConfig):
             frame_history=cfg.frame_history,
         )
     raise SystemExit(f"unknown --env {args.env!r} (fake or cpp:<game>)")
+
+
+def _sync_fleet(args, cfg: BA3CConfig, c2s: str, s2c: str, master) -> list:
+    """The local fleet's processes (not started): ``cpp:`` env servers of
+    up to 16 envs each, or one python simulator per env."""
+    if args.env.startswith("cpp:"):
+        from distributed_ba3c_tpu_torch.envs import native
+        from distributed_ba3c_tpu_torch.utils import shm
+
+        game = args.env.split(":", 1)[1]
+        wire = args.wire
+        if wire == "auto":
+            wire = "block-shm" if shm.available() else "block"
+        total = cfg.simulator_procs
+        per = min(16, total)
+        if wire != "per-env" and per > cfg.predict_batch_size:
+            # fail at startup, not inside the master's receive loop: a
+            # block is served in one predictor call
+            raise SystemExit(
+                f"--predict_batch_size {cfg.predict_batch_size} is smaller "
+                f"than the env-server block size {per}: the block wire "
+                "serves a whole block in one predictor call — raise "
+                f"--predict_batch_size to >= {per} or use --wire per-env"
+            )
+
+        def ring_cap(b: int):
+            # sized from this run's buffering by the formula the master's
+            # attach-time check uses, with 25% headroom
+            if wire != "block-shm":
+                return None
+            need = shm.min_safe_cap(
+                b, int(master.queue.maxsize), int(master.feed_batch), 1,
+                int(master.local_time_max), cfg.frame_history,
+            )
+            return max(
+                native.CppEnvServerProcess.SHM_RING_MIN_CAP,
+                native.CppEnvServerProcess.SHM_RING_STEPS // max(1, b),
+                int(need * 1.25) + 1,
+            )
+
+        procs = []
+        for i in range((total + per - 1) // per):
+            n = min(per, total - i * per)
+            procs.append(native.CppEnvServerProcess(
+                i, c2s, s2c, game=game, n_envs=n,
+                frame_history=cfg.frame_history, wire=wire,
+                shm_ring_cap=ring_cap(n),
+            ))
+        return procs
+    from distributed_ba3c_tpu_torch.actors.simulator import SimulatorProcess
+    from distributed_ba3c_tpu_torch.envs.wrappers import guarded_player
+
+    # train-mode episode guards around the simulators (the reference's
+    # get_player(train=True)); eval stays unguarded
+    sim_build_player = functools.partial(
+        guarded_player,
+        base_build=_build_player_factory(args, cfg),
+        episode_length_cap=cfg.episode_length_cap,
+        stuck_limit=30,
+        stuck_action=1,
+    )
+    return [
+        SimulatorProcess(i, c2s, s2c, sim_build_player)
+        for i in range(cfg.simulator_procs)
+    ]
+
+
+def _run_sync(args, cfg: BA3CConfig) -> int:
+    """``--task train --trainer tpu_sync_ba3c``: the local fleet -> ZMQ ->
+    :class:`BA3CSimulatorMaster` (n-step returns) -> the train queue ->
+    :class:`TrainFeed` (staged collate) -> :class:`DeviceIngest` -> the
+    sync learner step, with the params published to the
+    :class:`BatchedPredictor` that serves the fleet."""
+    import os
+    import queue
+
+    import torch
+
+    from distributed_ba3c_tpu_torch.actors.master import BA3CSimulatorMaster
+    from distributed_ba3c_tpu_torch.actors.simulator import default_pipes
+    from distributed_ba3c_tpu_torch.data.dataflow import TrainFeed
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+    from distributed_ba3c_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+    from distributed_ba3c_tpu_torch.predict.server import BatchedPredictor
+    from distributed_ba3c_tpu_torch.train.callbacks import (
+        Evaluator,
+        HumanHyperParamSetter,
+        MaxSaver,
+        ModelSaver,
+        PeriodicTrigger,
+        ScheduledHyperParamSetter,
+        StartProcOrThread,
+        StatPrinter,
+    )
+    from distributed_ba3c_tpu_torch.train.trainer import Trainer, TrainLoopConfig
+    from distributed_ba3c_tpu_torch.utils import logger
+    from distributed_ba3c_tpu_torch.utils.device import resolve_device
+
+    if args.env.startswith(("jax:", "gym:", "zmq:")):
+        raise SystemExit(
+            f"--trainer tpu_sync_ba3c --env {args.env}: not ported yet (the "
+            "port's sync trainer runs fake or cpp:<game>; see ROADMAP)"
+        )
+    device = resolve_device(args.device)
+    if args.wire_crc:
+        # here AND in the env var: spawned env servers read it at import
+        from distributed_ba3c_tpu_torch.utils.serialize import set_wire_crc
+
+        set_wire_crc(True)
+        os.environ["BA3C_WIRE_CRC"] = "1"
+
+    def build_net():
+        return BA3CNet(
+            num_actions=cfg.num_actions,
+            fc_units=cfg.fc_units,
+            image_size=cfg.image_size,
+            in_channels=cfg.state_shape[2],
+            conv_backend=args.conv_backend,
+            device=device,
+            generator=torch.Generator().manual_seed(args.seed),
+        )
+
+    model = build_net()
+    state = create_train_state(model, cfg)
+    step = make_train_step(model, state.optimizer, cfg)
+    if args.pipe_c2s and args.pipe_s2c:
+        c2s, s2c = args.pipe_c2s, args.pipe_s2c
+    elif args.pipe_c2s or args.pipe_s2c:
+        raise SystemExit("--pipe_c2s and --pipe_s2c must be given together")
+    else:
+        c2s, s2c = default_pipes()
+    score_q: queue.Queue = queue.Queue(maxsize=4096)
+    # the serving forward swaps the served params into its own module
+    predictor = BatchedPredictor(
+        build_net(), model.state_dict(), batch_size=cfg.predict_batch_size,
+        rollout_dtype=args.rollout_dtype, device=device,
+    )
+    # every serving bucket once now, not under the fleet's first requests
+    predictor.warmup(cfg.state_shape)
+    master = BA3CSimulatorMaster(
+        c2s, s2c, predictor, gamma=cfg.gamma,
+        local_time_max=cfg.local_time_max, score_queue=score_q,
+        actor_timeout=args.actor_timeout or None, reward_clip=cfg.reward_clip,
+    )
+    # ring-safety input: the feed's collate holder pins ring views too
+    master.feed_batch = cfg.batch_size
+    try:
+        procs = _sync_fleet(args, cfg, c2s, s2c, master)
+    except BaseException:
+        master.close()
+        raise
+    staging = None
+    if args.ingest_staging == "on":
+        from distributed_ba3c_tpu_torch.data.staging import (
+            DeviceIngest,
+            HostStagingRing,
+        )
+
+        staging = HostStagingRing(pin_memory=device.type == "cuda")
+    feed = TrainFeed(master.queue, cfg.batch_size, staging=staging)
+    if staging is not None:
+        feed = DeviceIngest(feed, device)
+    logger.info(
+        "sync trainer on %s: %d %s over %s, batch %d, local_time_max %d",
+        device, len(procs), type(procs[0]).__name__ if procs else "processes",
+        c2s, cfg.batch_size, cfg.local_time_max,
+    )
+
+    run_eval = args.nr_eval > 0
+    callbacks = [
+        StartProcOrThread(procs + [predictor, master, feed]),
+        HumanHyperParamSetter("learning_rate", shared_dir=args.logdir),
+        HumanHyperParamSetter("entropy_beta", shared_dir=args.logdir),
+        StatPrinter(),
+        ModelSaver(
+            ckpt_dir=os.path.join(args.logdir, "checkpoints"),
+            max_to_keep=args.max_to_keep,
+        ),
+        MaxSaver(monitor="eval_mean_score" if run_eval else "mean_score"),
+    ]
+    if run_eval:
+        # before StatPrinter, so the eval stats land in this epoch's record
+        # (MaxSaver reads it)
+        callbacks.insert(3, PeriodicTrigger(
+            Evaluator(args.nr_eval, _build_player_factory(args, cfg)),
+            every_k_epochs=args.eval_every,
+        ))
+    if args.learning_rate_final is not None:
+        callbacks.append(ScheduledHyperParamSetter(
+            "learning_rate",
+            [(1, cfg.learning_rate), (args.max_epoch, args.learning_rate_final)],
+            interp=args.anneal_lr or args.anneal,
+        ))
+    if args.entropy_beta_final is not None:
+        callbacks.append(ScheduledHyperParamSetter(
+            "entropy_beta",
+            [(1, cfg.entropy_beta), (args.max_epoch, args.entropy_beta_final)],
+            interp=args.anneal_beta or args.anneal,
+        ))
+    trainer = Trainer(
+        TrainLoopConfig(
+            steps_per_epoch=args.steps_per_epoch,
+            max_epoch=args.max_epoch,
+            log_dir=args.logdir,
+            publish_every=args.publish_every,
+        ),
+        cfg, step, state, feed, callbacks,
+        predictor=predictor, score_queue=score_q,
+        samples_per_step=cfg.batch_size,
+    )
+    if args.load:
+        trainer.restore(args.load)
+    trainer.train()
+    return 0
 
 
 def _run_eval(args, cfg, model, params) -> int:
@@ -228,13 +489,17 @@ def main(argv: Optional[list] = None) -> int:
 
     parser = make_parser()
     args = parser.parse_args(argv)
+    if args.nr_eval is None:
+        args.nr_eval = 8
     if args.task == "train":
         waits_for = TRAINERS[args.trainer]
         if waits_for is not None:
             parser.error(
                 f"--trainer {args.trainer} is not ported yet: it waits for "
-                f"{waits_for}; --trainer tpu_fused_ba3c is"
+                f"{waits_for}"
             )
+        if args.trainer == "tpu_sync_ba3c":
+            return _run_sync(args, build_config(args))
         from distributed_ba3c_tpu_torch.fused.loop import run_fused_training
 
         return run_fused_training(args, build_config(args))

@@ -50,7 +50,7 @@ class BA3CConfig:
     # --- actor system -----------------------------------------------------
     simulator_procs: int = 50                # SIMULATOR_PROC per worker
     predict_batch_size: int = 16             # PREDICT_BATCH_SIZE
-    predictor_threads: int = 2               # predictor worker threads
+    predictor_threads: int = 2               # no effect: the predictor runs one scheduler thread
 
     # --- model ------------------------------------------------------------
     num_actions: int = 6                     # set from the env at build time

@@ -1,0 +1,135 @@
+"""The train-queue batcher: datapoints -> collated batches on a thread.
+
+Port of ``distributed_ba3c_tpu/data/dataflow.py:91-260`` (``_BatchFeed``,
+``collate_train``, ``TrainFeed``). The reference's
+``QueueInput``/``EnqueueThread`` job, moving batch assembly off the
+learner's thread, is done by the feed's batcher thread. ``RolloutFeed``
+(the V-trace trainer) and ``FleetMergeFeed`` (``--fleets``) are not ported
+yet (ROADMAP queue A items 4 and 8), nor the tracing rider the JAX feed
+strips. The staged collate writes into the pinned ring of
+``data/staging.py``.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from distributed_ba3c_tpu_torch.utils.concurrency import StoppableThread
+
+
+class _BatchFeed:
+    """Batcher thread base: item queue -> ready collated batches.
+
+    The learner calls :meth:`next_batch`; a dedicated thread keeps up to
+    ``prefetch`` collated batches ready so batch assembly overlaps the
+    learner step. Subclasses define :meth:`_collate` and ``_kind`` (the
+    staged collate's key in ``data/staging.py::COLLATE_INTO``).
+    """
+
+    _kind: str = ""
+
+    def __init__(
+        self,
+        in_queue: "queue.Queue",
+        batch_size: int,
+        prefetch: int = 2,
+        staging=None,
+    ):
+        self.in_queue = in_queue
+        self.batch_size = batch_size
+        #: data/staging.py HostStagingRing — when set, collate writes in
+        #: place into an acquired slot (ONE obs copy) instead of allocating
+        #: fresh arrays per batch
+        self.staging = staging
+        self._out: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        self._thread = StoppableThread(
+            target=self._loop, daemon=True, name=type(self).__name__
+        )
+
+    def _collate(self, holder: List) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def _collate_staged(self, holder: List, t: StoppableThread):
+        """Collate into a staging slot (None only on stop: the ring's
+        backpressure pauses the batcher for as long as a consumer stalls)."""
+        from distributed_ba3c_tpu_torch.data import staging as _staging
+
+        spec_fn, into_fn = _staging.COLLATE_INTO[self._kind]
+        slot = _staging.acquire_stoppable(
+            self.staging, spec_fn(holder), t.stopped
+        )
+        if slot is None:
+            return None
+        into_fn(holder, slot.buffers)
+        self.staging.count_staged_copy()
+        return self.staging.staged(slot)
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._thread.stop()
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """Wait for the batcher thread to exit (it polls every 0.2 s)."""
+        if self._thread.is_alive():
+            self._thread.join(timeout)
+
+    def _loop(self) -> None:
+        t = threading.current_thread()
+        assert isinstance(t, StoppableThread)
+        holder: List = []
+        while not t.stopped():
+            item = t.queue_get_stoppable(self.in_queue, timeout=0.2)
+            if item is None:
+                return  # stopped while the actor plane was quiet
+            holder.append(item)
+            if len(holder) < self.batch_size:
+                continue
+            if self.staging is not None:
+                batch = self._collate_staged(holder, t)
+                if batch is None:
+                    return  # stopped while every staging slot was fenced
+            else:
+                batch = self._collate(holder)
+            holder = []
+            if not t.queue_put_stoppable(self._out, batch, timeout=0.2):
+                if self.staging is not None:
+                    batch.release()  # slot back in rotation for the join
+                return  # stopped while the learner was backed up
+
+    def next_batch(self, timeout: Optional[float] = None) -> Dict[str, np.ndarray]:
+        return self._out.get(timeout=timeout)
+
+    def qsize(self) -> int:
+        return self._out.qsize()
+
+
+def collate_train(holder: List[list]) -> Dict[str, np.ndarray]:
+    """[state, action, R] datapoints -> flat {state, action, return} arrays.
+
+    The compat path: fresh arrays and one obs stack pass per batch
+    (self-reported to ``ingest_copies_total``); the staged path
+    (data/staging.py ``collate_train_into``) writes the same bytes once
+    into a reused slot."""
+    from distributed_ba3c_tpu_torch.data.staging import count_legacy_copies
+
+    count_legacy_copies(1.0)
+    return {
+        "state": np.stack([np.asarray(dp[0]) for dp in holder]),
+        "action": np.asarray([dp[1] for dp in holder], np.int32),
+        "return": np.asarray([dp[2] for dp in holder], np.float32),
+    }
+
+
+class TrainFeed(_BatchFeed):
+    """[state, action, R] datapoints -> flat {state, action, return} batches."""
+
+    _kind = "train"
+
+    def _collate(self, holder: List[list]) -> Dict[str, np.ndarray]:
+        return collate_train(holder)

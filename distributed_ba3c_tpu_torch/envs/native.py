@@ -1,20 +1,27 @@
-"""ctypes binding for the C++ batched env core.
+"""ctypes binding for the C++ batched env core, and its env-server process.
 
-A copy of ``distributed_ba3c_tpu/envs/native.py`` up to ``build_cpp_player``
-(the env-server process and its ZMQ wire are not ported yet). It loads the
-repo's native core ``cpp/libba3c_env.so`` (build: ``make -C cpp``), which
-exposes a BATCHED step API so one process drives dozens of envs per call.
+A copy of ``distributed_ba3c_tpu/envs/native.py``. It loads the repo's
+native core ``cpp/libba3c_env.so`` (build: ``make -C cpp``), which exposes
+a BATCHED step API so one process drives dozens of envs per call.
 
-Two integration surfaces:
+Three integration surfaces:
 - :class:`CppBatchedEnv` — raw batched stepper (numpy in/out, zero copies
   beyond the ctypes call).
 - :func:`build_cpp_player` — single-env player (envs/base.py protocol) for
   wrappers and eval.
+- :class:`CppEnvServerProcess` — one spawned process stepping B envs in
+  lockstep and speaking the actor plane's ZMQ wire (``block-shm``,
+  ``block`` or ``per-env``) to a master. Its wire is byte-compatible with
+  the JAX package's server: either side's server feeds either side's
+  master. It never sends the tracing plane's context (not ported yet).
+
+This module imports no torch: the env-server children import it.
 """
 
 import ctypes
+import multiprocessing as mp
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -164,3 +171,311 @@ def build_cpp_player(idx: int, name: str = "pong", frame_history: int = 4):
 
     return HistoryFramePlayer(_CppPlayer(), frame_history)
 
+
+
+def _decode_actions(raw: bytes, fallback: np.ndarray, counter) -> np.ndarray:
+    """Decode a batched action-reply frame; junk must not kill the loop.
+
+    A corrupt or short reply frame repeats the previous actions, makes the
+    drop visible on ``corrupt_action_replies_total``, and keeps the
+    lockstep loop alive instead of raising out of ``_run_block*``.
+    """
+    try:
+        actions = np.frombuffer(raw, np.int32)
+    except Exception:
+        counter.inc()
+        return fallback
+    if actions.shape != fallback.shape:
+        counter.inc()
+        return fallback
+    return actions
+
+
+def _decode_action(raw: bytes, fallback: int, counter) -> int:
+    """Per-env twin of :func:`_decode_actions` for the ``per-env`` wire."""
+    from distributed_ba3c_tpu_torch.utils.serialize import loads
+
+    try:
+        return int(loads(raw))
+    except Exception:
+        counter.inc()
+        return fallback
+
+
+class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc]
+    """One process, B native envs, lockstep-batched stepping, ZMQ transport.
+
+    Three wire modes, as in the JAX package:
+
+    - ``wire="block-shm"``: control over ZMQ, observation bytes through a
+      /dev/shm ring (utils/shm.py). ONE tiny multipart message per STEP —
+      ``[header, rewards[B], dones[B]]``, the header naming the ring and
+      the step's slot — and one raw ``int32[B]`` action reply. The server
+      writes each step's obs plane into ``ring[step % cap]``; the master
+      reads frame-history windows as numpy views. Same host only.
+    - ``wire="block"``: ONE multipart message per STEP for the whole block
+      — ``[header, obs[hist,B,H,W], rewards[B], dones[B]]`` as raw
+      zero-copy frames — and one raw ``int32[B]`` action reply, routed by
+      the block's DEALER identity ``<prefix>*block``. The history stack is
+      ``[hist, B, H, W]`` so the per-step shift is a contiguous memmove;
+      the master consumes transposed views.
+    - ``wire="per-env"``: each env has its own DEALER identity
+      ``<prefix>-<i>`` and speaks SimulatorProcess's per-env msgpack
+      protocol: send [ident, stacked_state, reward, isOver], await action.
+
+    Each server seeds its envs ``idx * 10_000``, as the JAX server does.
+    Every ``PIGGYBACK_EVERY`` steps the header (block wires) or env 0's
+    message (per-env) carries the counter deltas of the ``simulator``
+    registry (telemetry/wire.py).
+    """
+
+    #: default block-shm ring sizing: capacity (in steps) chosen so the
+    #: ring is ~8192 env-steps deep regardless of B (~57 MB at 84x84)
+    SHM_RING_STEPS = 8192
+    SHM_RING_MIN_CAP = 64
+
+    def __init__(
+        self,
+        idx: int,
+        pipe_c2s: str,
+        pipe_s2c: str,
+        game: str = "pong",
+        n_envs: int = 16,
+        frame_history: int = 4,
+        ident_prefix: Optional[str] = None,
+        wire: str = "block",
+        shm_ring_cap: Optional[int] = None,
+    ):
+        super().__init__(daemon=True, name=f"cpp-env-server-{idx}")
+        assert wire in ("block-shm", "block", "per-env"), wire
+        self.idx = idx
+        self.c2s = pipe_c2s
+        self.s2c = pipe_s2c
+        self.game = game
+        self.n_envs = n_envs
+        self.frame_history = frame_history
+        self.ident_prefix = ident_prefix or f"cppsim-{idx}"
+        self.wire = wire
+        self.shm_ring_cap = shm_ring_cap or max(
+            self.SHM_RING_MIN_CAP, self.SHM_RING_STEPS // max(1, n_envs)
+        )
+
+    def run(self) -> None:  # child process: no torch
+        if self.wire == "block-shm":
+            self._run_block_shm()
+        elif self.wire == "block":
+            self._run_block()
+        else:
+            self._run_per_env()
+
+    def _tele_setup(self):
+        """Child-side telemetry: ``(count_step, piggyback, c_bad)``.
+
+        ``count_step(rew, dn)`` runs once per lockstep step;
+        ``piggyback(step)`` returns the deltas dict to append to the wire
+        (or None, which keeps the message at its base length); ``c_bad``
+        is the ``corrupt_action_replies_total`` counter the decoders
+        tick."""
+        from distributed_ba3c_tpu_torch import telemetry
+
+        tele = telemetry.registry("simulator")
+        c_steps = tele.counter("env_steps_total")
+        c_eps = tele.counter("episodes_total")
+        # reward split by sign: both halves stay monotonic counters
+        c_rew_pos = tele.counter("reward_pos_sum")
+        c_rew_neg = tele.counter("reward_neg_sum")
+        c_bad = tele.counter("corrupt_action_replies_total")
+        tracker = telemetry.DeltaTracker(tele)
+        B = self.n_envs
+
+        def count_step(rew, dn) -> None:
+            c_steps.inc(B)
+            n_done = int(dn.sum())
+            if n_done:
+                c_eps.inc(n_done)
+            pos = float(rew[rew > 0].sum())
+            neg = -float(rew[rew < 0].sum())
+            if pos:
+                c_rew_pos.inc(pos)
+            if neg:
+                c_rew_neg.inc(neg)
+
+        def piggyback(step: int):
+            if not telemetry.enabled():
+                return None
+            if step == 0 or step % telemetry.PIGGYBACK_EVERY:
+                return None
+            return tracker.deltas() or None
+
+        return count_step, piggyback, c_bad
+
+    def _sockets(self, idents, hwm: int):
+        """A PUSH to the master's c2s and one DEALER per ident on s2c."""
+        import zmq
+
+        ctx = zmq.Context()
+        push = ctx.socket(zmq.PUSH)
+        push.set_hwm(hwm)
+        push.connect(self.c2s)
+        dealers = []
+        for ident in idents:
+            s = ctx.socket(zmq.DEALER)
+            s.setsockopt(zmq.IDENTITY, ident)
+            s.connect(self.s2c)
+            dealers.append(s)
+        return ctx, push, dealers
+
+    def _run_block_shm(self) -> None:
+        import signal
+
+        import zmq
+
+        from distributed_ba3c_tpu_torch.utils import shm as shm_mod
+        from distributed_ba3c_tpu_torch.utils.serialize import pack_block
+
+        # terminate() must run the finally block so the ring file is
+        # unlinked (a SIGKILLed server's stale file is renamed over at the
+        # next create)
+        def _term(*_):
+            raise SystemExit(0)
+
+        signal.signal(signal.SIGTERM, _term)
+
+        env = CppBatchedEnv(self.game, self.n_envs, seed=self.idx * 10_000)
+        obs = env.reset()
+        B, H, W, hist = self.n_envs, env.h, env.w, self.frame_history
+        cap = self.shm_ring_cap
+        ident = f"{self.ident_prefix}*block".encode()
+        # stable across restarts of this server slot (utils/shm.py)
+        ring_name = shm_mod.ring_name(self.c2s, self.ident_prefix)
+        ring = shm_mod.ShmRing.create(ring_name, cap, B, H, W)
+        rewards = np.zeros(B, np.float32)
+        dones = np.zeros(B, np.uint8)
+        actions = np.zeros(B, np.int32)  # fallback on a corrupt reply
+        ctx, push, (dealer,) = self._sockets([ident], 4)  # blocks are big
+        count_step, piggyback, c_bad = self._tele_setup()
+        step = 0
+        try:
+            while True:
+                # the step's obs plane goes into the ring; the wire carries
+                # only the header + rewards + dones
+                ring.arr[step % cap] = obs
+                meta = [ident, step, B, ring_name, cap, H, W, hist]
+                tele = piggyback(step)
+                if tele is not None:
+                    meta.append(tele)  # length-versioned tail
+                # lockstep protocol: park in send/recv awaiting the reply
+                push.send_multipart(pack_block(meta, [rewards, dones]), copy=False)
+                actions = _decode_actions(dealer.recv(), actions, c_bad)
+                obs, rew, dn = env.step(actions)
+                rewards[:] = rew
+                dones[:] = dn
+                count_step(rew, dn)
+                step += 1
+        except (KeyboardInterrupt, SystemExit, zmq.ContextTerminated):
+            pass
+        finally:
+            dealer.close(0)
+            push.close(0)
+            ctx.term()
+            ring.close(unlink=True)
+
+    def _run_block(self) -> None:
+        import zmq
+
+        from distributed_ba3c_tpu_torch.utils.serialize import pack_block
+
+        env = CppBatchedEnv(self.game, self.n_envs, seed=self.idx * 10_000)
+        obs = env.reset()
+        B, H, W, hist = self.n_envs, env.h, env.w, self.frame_history
+        # [hist, B, H, W]: oldest..newest planes, contiguous — the shift is
+        # one contiguous memmove and the whole stack is ONE wire frame
+        stacks = np.zeros((hist, B, H, W), np.uint8)
+        stacks[-1] = obs
+        rewards = np.zeros(B, np.float32)
+        dones = np.zeros(B, np.uint8)
+        actions = np.zeros(B, np.int32)  # fallback on a corrupt reply
+        ident = f"{self.ident_prefix}*block".encode()
+        ctx, push, (dealer,) = self._sockets([ident], 4)  # blocks are big
+        count_step, piggyback, c_bad = self._tele_setup()
+        step = 0
+        try:
+            while True:
+                meta = [ident, step, B]
+                tele = piggyback(step)
+                if tele is not None:
+                    meta.append(tele)
+                # copy=False hands zmq the arrays' own buffers: safe because
+                # the master cannot reply before it has received the
+                # message, and the buffers change only after the reply
+                push.send_multipart(
+                    pack_block(meta, [stacks, rewards, dones]), copy=False
+                )
+                actions = _decode_actions(dealer.recv(), actions, c_bad)
+                obs, rew, dn = env.step(actions)
+                rewards[:] = rew
+                dones[:] = dn
+                count_step(rew, dn)
+                # shift history; clear across episode boundaries so the
+                # first post-reset state is [0,...,0,obs]
+                stacks[:-1] = stacks[1:]
+                stacks[-1] = obs
+                if dn.any():
+                    d = dn.astype(bool)
+                    stacks[:-1, d] = 0
+                step += 1
+        except (KeyboardInterrupt, zmq.ContextTerminated):
+            pass
+        finally:
+            dealer.close(0)
+            push.close(0)
+            ctx.term()
+
+    def _run_per_env(self) -> None:
+        import zmq
+
+        from distributed_ba3c_tpu_torch.utils.serialize import dumps
+
+        env = CppBatchedEnv(self.game, self.n_envs, seed=self.idx * 10_000)
+        obs = env.reset()
+        B, H, W = self.n_envs, env.h, env.w
+        stacks = np.zeros((B, H, W, self.frame_history), np.uint8)
+        stacks[..., -1] = obs
+        rewards = np.zeros(B, np.float32)
+        dones = np.zeros(B, bool)
+        idents = [f"{self.ident_prefix}-{i}".encode() for i in range(B)]
+        ctx, push, dealers = self._sockets(idents, B + 4)
+        count_step, piggyback, c_bad = self._tele_setup()
+        actions = np.zeros(B, np.int32)
+        step = 0
+        try:
+            while True:
+                tele = piggyback(step)
+                # telemetry rides env 0's message as an optional 5th element
+                for i in range(B):
+                    msg = [idents[i], stacks[i], float(rewards[i]), bool(dones[i])]
+                    if i == 0 and tele is not None:
+                        msg.append(tele)
+                    push.send(dumps(msg))
+                for i in range(B):
+                    actions[i] = _decode_action(
+                        dealers[i].recv(), int(actions[i]), c_bad
+                    )
+                obs, rew, dn = env.step(actions)
+                rewards[:] = rew
+                dones[:] = dn.astype(bool)
+                count_step(rew, dn)
+                step += 1
+                # shift history; clear across episode boundaries
+                stacks[..., :-1] = stacks[..., 1:]
+                stacks[..., -1] = obs
+                if dones.any():
+                    stacks[dones] = 0
+                    stacks[dones, :, :, -1] = obs[dones]
+        except (KeyboardInterrupt, zmq.ContextTerminated):
+            pass
+        finally:
+            for s in dealers:
+                s.close(0)
+            push.close(0)
+            ctx.term()

@@ -10,7 +10,8 @@ Port of ``distributed_ba3c_tpu/fused/loop.py``. One step, as there:
     bootstrap value on the final stacks
     n-step returns (reverse loop, done-masked)       ops/returns.py
     a3c loss over the flat [T*B] batch, in grad_chunk_samples chunks;
-        the gradient is the mean of the chunk gradients (ops/loss.py)
+        the gradient is the mean of the chunk gradients
+        (parallel/train_step.py::learner_grads, the sync step's too)
     grad_summaries of the unclipped gradients; global-norm clip, then Adam
 
 It runs on one device with no mesh: the data-axis mean over one shard is
@@ -33,18 +34,18 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from distributed_ba3c_tpu_torch.config import BA3CConfig
 from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
 from distributed_ba3c_tpu_torch.ops.gradproc import ClipAdam, grad_summaries
-from distributed_ba3c_tpu_torch.ops.loss import A3CLossOut, a3c_loss
 from distributed_ba3c_tpu_torch.ops.returns import n_step_returns
 from distributed_ba3c_tpu_torch.parallel.train_step import (
     TrainState,
     create_train_state,
+    learner_grads,
 )
 
 #: metrics that accumulate in the state across an epoch (reset by the outer
@@ -172,53 +173,6 @@ def make_rollout_body(model: BA3CNet, cfg: BA3CConfig, env) -> Callable:
         return carry, (stack, actions, r_learn, donef)
 
     return rollout_body
-
-
-def n_grad_chunks(n: int, grad_chunk_samples: int) -> int:
-    """The fewest equal chunks of at most ``grad_chunk_samples`` (rounded
-    up until they divide ``n``), as the JAX step counts them."""
-    n_chunks = max(1, -(-n // grad_chunk_samples))
-    while n % n_chunks:
-        n_chunks += 1
-    return n_chunks
-
-
-def learner_grads(
-    model: BA3CNet,
-    cfg: BA3CConfig,
-    states: torch.Tensor,
-    actions: torch.Tensor,
-    returns: torch.Tensor,
-    entropy_beta: float,
-    grad_chunk_samples: int = 4096,
-) -> Tuple[List[torch.Tensor], A3CLossOut]:
-    """The a3c loss's gradients over a flat batch, in parameter order,
-    with the loss terms: the mean over equal chunks of at most
-    ``grad_chunk_samples`` (which equals the full-batch gradient)."""
-    params = list(model.parameters())
-    n_chunks = n_grad_chunks(states.shape[0], grad_chunk_samples)
-    grads, aux = None, None
-    for s, a, r in zip(
-        states.chunk(n_chunks), actions.chunk(n_chunks), returns.chunk(n_chunks)
-    ):
-        out = model(s)
-        loss = a3c_loss(
-            out.logits, out.value, a, r,
-            entropy_beta=entropy_beta,
-            value_loss_coef=cfg.value_loss_coef,
-            huber_delta=cfg.value_huber_delta,
-        )
-        g = torch.autograd.grad(loss.total, params)
-        terms = [t.detach() for t in loss]
-        if grads is None:
-            grads, aux = list(g), terms
-        else:
-            grads = [x + y for x, y in zip(grads, g)]
-            aux = [x + y for x, y in zip(aux, terms)]
-    if n_chunks > 1:
-        grads = [x / n_chunks for x in grads]
-        aux = [x / n_chunks for x in aux]
-    return grads, A3CLossOut(*aux)
 
 
 def make_fused_step(

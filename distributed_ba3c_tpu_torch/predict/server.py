@@ -277,8 +277,13 @@ class BatchedPredictor:
     clock: monotonic-clock callable (tests inject a fake clock).
     rollout_dtype: ``float32`` or ``bfloat16`` param storage (``int8`` is
         not ported yet and raises NotImplementedError).
+    tele_role: telemetry registry role (``predictor``; one per fleet
+        when a learner hosts several).
     device: where the policies live and the forward runs; ``cuda`` by
         default, which raises when no card is present.
+
+    ``model`` must not be the learner's own module: the forward swaps the
+    served params into it (``functional_call``) from the scheduler thread.
     """
 
     def __init__(
@@ -293,10 +298,13 @@ class BatchedPredictor:
         queue_depth: int = 4096,
         dispatch_depth: int = 2,
         clock: Optional[Callable[[], float]] = None,
+        tele_role: str = "predictor",
         rollout_dtype: str = "float32",
         device="cuda",
     ):
         self._model = model
+        # the masters' shed fallback draws uniform actions over this space
+        self.num_actions = int(getattr(model, "num_actions", 0) or 0)
         if rollout_dtype not in ROLLOUT_DTYPES:
             raise ValueError(
                 f"rollout_dtype must be one of {ROLLOUT_DTYPES}, got "
@@ -344,7 +352,8 @@ class BatchedPredictor:
         #: — when None, shadow results are dropped WITHOUT a host sync
         self.shadow_tap: Optional[Callable] = None
 
-        tele = telemetry.registry("predictor")
+        tele = telemetry.registry(tele_role)
+        self.tele_role = tele_role
         self._tele = tele
         self._c_batches = tele.counter("batches_total")
         self._c_rows = tele.counter("rows_total")
@@ -420,9 +429,12 @@ class BatchedPredictor:
         entries cast to the rollout dtype — ONE place, so every publish
         path (ctor, add_policy, update_params) serves the same precision.
 
-        On CUDA the copy runs on the predictor's stream (after the caller's
-        pending work on its current stream), so the dispatches that read
-        the table are ordered after it without a host sync."""
+        On CUDA the copy runs on the predictor's stream, after the caller's
+        pending work on its current stream, so the dispatches that read
+        the table are ordered after it without a host sync; and the
+        caller's stream then waits for the copy, so the caller's next work
+        (the learner's in-place Adam update) cannot overwrite the source
+        tensors while the copy still reads them."""
         dt = torch.bfloat16 if self.rollout_dtype == "bfloat16" else None
 
         def put(v: torch.Tensor) -> torch.Tensor:
@@ -432,9 +444,12 @@ class BatchedPredictor:
 
         if self._stream is None:
             return {k: put(v) for k, v in params.items()}
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
         with torch.cuda.stream(self._stream):
-            return {k: put(v) for k, v in params.items()}
+            table = {k: put(v) for k, v in params.items()}
+        caller.wait_stream(self._stream)
+        return table
 
     def add_policy(self, policy_id: str, params) -> None:
         """Make a second checkpoint hot behind the same scheduler.

@@ -1,7 +1,7 @@
 """Sharded metrics core: Counter / Gauge / log2-bucket Histogram + Registry.
 
 A copy of ``distributed_ba3c_tpu/telemetry/metrics.py`` without the
-fleet-wire and tracing resets (those planes are not ported yet).
+tracing reset (the tracing plane is not ported yet).
 
 Built for the 52.8k env-steps/s/host hot path (``runs/plane_bench_r6.json``):
 no locks on the write side, aggregation at read time. Each metric keeps one
@@ -288,3 +288,7 @@ def reset_all() -> None:
     with _registries_lock:
         for r in _registries.values():
             r._metrics = {}
+    # the fleet-aggregation sender table resets with the registries
+    from distributed_ba3c_tpu_torch.telemetry import wire
+
+    wire._FLEET_SEEN.clear()

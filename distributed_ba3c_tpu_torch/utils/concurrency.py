@@ -1,18 +1,25 @@
-"""Thread helpers for the serving plane.
+"""Thread and process helpers for the serving and actor planes.
 
 The subset of ``distributed_ba3c_tpu/utils/concurrency.py`` that the
-predictor uses, copied: :class:`FastQueue`, :class:`StoppableThread` and
-:func:`queue_put_stoppable`. Concurrency safety is by construction, as
+predictor and the actor plane use, copied: :class:`FastQueue`,
+:class:`StoppableThread`, :func:`queue_put_stoppable`, and the child
+process helpers :func:`ensure_proc_terminate`, :func:`mask_sigint` and
+:func:`start_proc_mask_signal`. Concurrency safety is by construction, as
 there: queues between threads, no shared mutable state.
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
+import multiprocessing as mp
 import queue
+import signal
 import threading
 import time
-from typing import Optional
+import weakref
+from contextlib import contextmanager
+from typing import Iterable, Optional, Union
 
 
 class FastQueue:
@@ -140,3 +147,52 @@ class StoppableThread(threading.Thread):
     def queue_get_stoppable(self, q: queue.Queue, timeout: float = 0.5):
         """Get, retrying until success or stop(); returns None if stopped."""
         return queue_get_stoppable(q, self._stop_evt, timeout)
+
+
+def ensure_proc_terminate(
+    proc: Union[mp.Process, Iterable[mp.Process]],
+) -> None:
+    """Register an atexit hook that terminates the process(es): simulator
+    processes must not outlive the trainer."""
+    if not isinstance(proc, mp.process.BaseProcess):
+        for p in proc:
+            ensure_proc_terminate(p)
+        return
+
+    ref = weakref.ref(proc)
+
+    def stop():
+        p = ref()
+        if p is None or not p.is_alive():
+            return
+        p.terminate()
+        p.join(timeout=5)
+        if p.is_alive():
+            p.kill()
+
+    atexit.register(stop)
+
+
+@contextmanager
+def mask_sigint():
+    """Ignore SIGINT while children start, so they do not receive the
+    trainer's Ctrl-C."""
+    if threading.current_thread() is threading.main_thread():
+        old = signal.signal(signal.SIGINT, signal.SIG_IGN)
+        try:
+            yield
+        finally:
+            signal.signal(signal.SIGINT, old)
+    else:
+        yield
+
+
+def start_proc_mask_signal(
+    procs: Union[mp.Process, Iterable[mp.Process]],
+) -> None:
+    """Start process(es) with SIGINT masked (children ignore Ctrl-C)."""
+    if isinstance(procs, mp.process.BaseProcess):
+        procs = [procs]
+    with mask_sigint():
+        for p in procs:
+            p.start()

@@ -30,7 +30,7 @@ from distributed_ba3c_tpu.parallel.train_step import create_train_state as jax_t
 from distributed_ba3c_tpu.parallel.train_step import make_train_step
 from distributed_ba3c_tpu.train.checkpoint import CheckpointManager as JaxManager
 from distributed_ba3c_tpu_torch.config import BA3CConfig
-from distributed_ba3c_tpu_torch.fused.loop import learner_grads
+from distributed_ba3c_tpu_torch.parallel.train_step import learner_grads
 from distributed_ba3c_tpu_torch.models import BA3CNet, to_flax
 from distributed_ba3c_tpu_torch.models.convert import adam_from_optax, adam_to_optax
 from distributed_ba3c_tpu_torch.parallel.train_step import create_train_state

@@ -1,10 +1,13 @@
-"""The port's command line: ``--task train`` with the fused trainer.
+"""The port's command line: ``--task train`` with the fused trainer and
+with the sync trainer.
 
-The train command runs at a small shape on the CPU (``--device cpu``):
-full conv widths, ``--fc_units 16``, 2 envs x ``--rollout_len 3``, 2 steps
-x 2 epochs, a 5-step greedy eval. Without ``--device`` the command asks
-for the card and, where there is none, raises: it never carries on on the
-CPU.
+The fused train command runs at a small shape on the CPU (``--device
+cpu``): full conv widths, ``--fc_units 16``, 2 envs x ``--rollout_len 3``,
+2 steps x 2 epochs, a 5-step greedy eval. The sync trainer runs
+``tests/test_e2e_fake.py``'s command (4 FakeEnv simulators, batch 32,
+16x16 frames, fc 16, 2 x 80 steps, a 4-episode greedy eval) and must reach
+its learning thresholds. Without ``--device`` the command asks for the card
+and, where there is none, raises: it never carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -52,14 +55,59 @@ def test_train_without_device_raises_without_a_card(tmp_path, monkeypatch):
     assert not (tmp_path / "stat.json").exists()
 
 
-@pytest.mark.parametrize("trainer", ["tpu_sync_ba3c", "tpu_vtrace_ba3c"])
+@pytest.mark.parametrize("trainer", ["tpu_vtrace_ba3c"])
 def test_unported_trainers_exit_with_their_roadmap_item(trainer, capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["--task", "train", "--trainer", trainer, "--env", "jax:pong",
                   "--device", "cpu"])
     assert e.value.code == 2
-    item = {"tpu_sync_ba3c": 3, "tpu_vtrace_ba3c": 4}[trainer]
+    item = {"tpu_vtrace_ba3c": 4}[trainer]
     assert f"queue A item {item}" in capsys.readouterr().err
+
+
+#: tests/test_e2e_fake.py's flags
+E2E = ["--env", "fake", "--simulator_procs", "4", "--batch_size", "32",
+       "--image_size", "16", "--fc_units", "16", "--steps_per_epoch", "80",
+       "--max_epoch", "2", "--nr_eval", "4"]
+
+
+def test_sync_trainer_learns_the_fake_env(tmp_path):
+    """The sync path end to end on the CPU: FakeEnv simulator processes ->
+    ZMQ -> master -> predictor -> TrainFeed/DeviceIngest -> the learner ->
+    callbacks and eval, reaching tests/test_e2e_fake.py's thresholds."""
+    logdir = tmp_path / "log"
+    r = subprocess.run(
+        [sys.executable, "-m", "distributed_ba3c_tpu_torch", "--task", "train",
+         "--trainer", "tpu_sync_ba3c", *E2E, "--device", "cpu", "--logdir", str(logdir)],
+        capture_output=True, text=True, timeout=240, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO),
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    stats = json.loads((logdir / "stat.json").read_text())
+    assert len(stats) == 2
+    final = stats[-1]
+    assert final["eval_mean_score"] >= 0.75, final
+    assert final["mean_score"] >= 0.4, final
+    assert final["global_step"] == 160
+    assert final["tele/master/datapoints_total"] >= 160 * 32
+    assert final["tele/predictor/param_publishes_total"] >= 160
+    ckpt = json.loads((logdir / "checkpoints" / "checkpoint.json").read_text())
+    assert ckpt["latest"] == 160 and ckpt["best"] is not None
+    assert "StartProcOrThread: started 4 processes" in r.stderr
+
+
+def test_sync_trainer_refuses_a_block_larger_than_the_serving_bucket(tmp_path):
+    with pytest.raises(SystemExit, match="predict_batch_size"):
+        cli.main(["--env", "cpp:pong", "--simulator_procs", "16", "--predict_batch_size", "8",
+                  "--wire", "block", "--fc_units", "16", "--device", "cpu",
+                  "--logdir", str(tmp_path)])
+
+
+def test_sync_trainer_without_device_raises_without_a_card(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main([*E2E, "--logdir", str(tmp_path)])
+    assert not (tmp_path / "stat.json").exists()
 
 
 def test_fused_trainer_needs_a_jax_env(tmp_path):
@@ -83,5 +131,10 @@ def test_parser_keeps_the_jax_flag_defaults():
               "steps_per_dispatch", "batch_size", "learning_rate",
               "learning_rate_final", "entropy_beta", "entropy_beta_final",
               "anneal", "anneal_lr", "anneal_beta", "eval_every",
-              "eval_max_steps", "seed", "logdir", "trainer", "load", "max_to_keep"):
+              "eval_max_steps", "seed", "logdir", "trainer", "load", "max_to_keep",
+              "task", "nr_eval", "simulator_procs", "local_time_max",
+              "predict_batch_size", "predictor_threads", "frame_history", "wire",
+              "wire_crc", "pipe_c2s", "pipe_s2c", "actor_timeout", "publish_every",
+              "ingest_staging", "rollout_dtype", "num_actions", "image_size",
+              "fc_units", "gamma", "reward_clip"):
         assert port[k] == ref[k], k

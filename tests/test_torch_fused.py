@@ -39,10 +39,9 @@ from distributed_ba3c_tpu_torch.fused.loop import (
     create_fused_state,
     make_fused_step,
     make_greedy_eval,
-    n_grad_chunks,
 )
 from distributed_ba3c_tpu_torch.models import BA3CNet, from_flax, to_flax
-from distributed_ba3c_tpu_torch.parallel.train_step import create_train_state
+from distributed_ba3c_tpu_torch.parallel.train_step import create_train_state, n_grad_chunks
 from test_torch_pong import FLOAT_TOL, JaxReplay, state_to_torch, to_torch
 
 FEATS = (8, 8, 16, 16)
