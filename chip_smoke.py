@@ -13,7 +13,7 @@ sources (``csrc/conv_block.cu``, the forward; ``csrc/conv_block_bwd.cu``, the
 backward's route, dgrad and wgrad), holds each against its plain PyTorch
 version at the shapes the paths give it (the backward per block under each
 tie rule the model runs it with -- flax's on every block, reference_block's
-on blocks 1-3 -- on tie and random inputs at B = 1, 3 and 2560, and twice
+on blocks 1-3 -- on tie and random inputs at every batch of ``BWD_BATCHES``, and twice
 for bit-equal gradients), then drives the paths through the entry points a
 user calls: ``BA3CNet`` at full width (84x84x4 uint8 frames, convs
 32/32/64/64, FC 512, 6 actions, seeded random weights) on native Pong
@@ -28,8 +28,16 @@ evaluated and played with ``--load``; and ``[sync]``: ``--task train
 servers of 16 envs over the block-shm wire, the batched predictor serving
 them, and the learner at B=128, for 2 epochs, then a ``--load`` resume,
 then 8 python FakeEnv simulators over the per-env wire with the greedy
-Evaluator. An ``[env]`` line first records which of pyzmq, msgpack,
-tensorboard and gymnasium the machine has (informational).
+Evaluator; ``[vtrace]``: ``--trainer tpu_vtrace_ba3c`` on the same plane
+(5-step segments with the served log-probs, 25 a learner step, one
+forward over 150 states), 2 epochs and a ``--load`` epoch; and
+``[overlap]``: ``--trainer tpu_fused_ba3c --overlap`` (the actor on its
+own CUDA stream beside the learner, lag 1, one learner forward over 2688
+states), 2 epochs and a ``--load`` epoch, lag 0 at learning rate 0
+bit-equal with the fused step, and ``probe_overlap``. The kernels' parity
+covers the V-trace and overlap learners' batches (150, 2688). An
+``[env]`` line first records which of pyzmq, msgpack, tensorboard and
+gymnasium the machine has (informational).
 Every phase must pass; any failure exits nonzero and prints no result.
 
 The last lines of standard output are: the card's name and power limit (as
@@ -128,8 +136,11 @@ def phase_build():
 
 
 KERNEL_SOURCES = ("conv_block", "conv_block_bwd")
-KERNEL_BATCHES = (1, 3, 128, B, TRAIN_B)  # B=1 and 3 catch ragged-edge and tail faults;
-BWD_BATCHES = (1, 3, 128, TRAIN_B)        # 128 is the sync learner's batch
+# B=1 and 3 catch ragged-edge and tail faults; 128 is the sync learner's
+# batch, 150 the V-trace learner's (25 segments x 5 + 25 bootstrap states),
+# 2688 the overlap learner's (128 envs x 20 + 128 bootstrap states)
+KERNEL_BATCHES = (1, 3, 128, 150, B, TRAIN_B, 2688)
+BWD_BATCHES = (1, 3, 128, 150, TRAIN_B, 2688)
 DZ_MISMATCH = 1e-3  # share of dz elements the route may route otherwise than cuDNN's z
 TIMED_BATCHES = (B, TRAIN_B)
 
@@ -852,48 +863,67 @@ def _rel_l2(got, ref):
             / max(float(ref[k].double().norm()), 1e-3 * total) for k in ref}
 
 
-def phase_train_grads(dev, states):
-    """One learner chunk (B = len(states) Pong states: 2560, the fused
-    trainer's; 128, the sync trainer's) through BA3CNet(6) at full
-    width: the gradients with conv_backend="cuda" (the kernel forward and
-    the backward kernels) against conv_backend="torch" (the plain blocks
-    under autograd), and each one's peak device memory
-    (``max_memory_allocated`` over the chunk, states and nets included),
-    under the default block_rules ("xla", the trainer's)."""
+def grads_kernels_vs_plain(dev, grads_of, what: str) -> dict:
+    """``grads_of(net) -> (gradients in parameter order, loss)`` through
+    BA3CNet(6) at full width with conv_backend="cuda" (the kernel forward
+    and the backward kernels) and "torch" (the plain blocks under
+    autograd), under the default block_rules ("xla", the trainer's): the
+    per-parameter rel-L2 of the two, and each one's peak device memory
+    (``max_memory_allocated`` over the call, what earlier phases left
+    allocated included) and its peak above what was allocated before the
+    call (the call's own)."""
     import torch
 
-    from distributed_ba3c_tpu_torch.config import BA3CConfig
-    from distributed_ba3c_tpu_torch.parallel.train_step import learner_grads
     from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
 
-    n = states.shape[0]
-    g = torch.Generator(device=dev).manual_seed(2)
-    actions = torch.randint(0, 6, (n,), generator=g, device=dev)
-    returns = torch.randn((n,), generator=g, device=dev)
-    grads, aux, peak = {}, {}, {}
+    grads, aux, peak, own = {}, {}, {}, {}
     for backend in ("cuda", "torch"):
         net = BA3CNet(6, conv_backend=backend, device=dev,
                       generator=torch.Generator().manual_seed(0))
         rules = net.block_rules  # the trainer's: every entry point's default
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        gs, loss = learner_grads(net, BA3CConfig(), states, actions, returns, 0.01,
-                                 grad_chunk_samples=n)
+        before = torch.cuda.memory_allocated(dev)
+        gs, loss = grads_of(net)
         torch.cuda.synchronize()
         peak[backend] = torch.cuda.max_memory_allocated(dev)
+        own[backend] = peak[backend] - before
         grads[backend] = {k: gr for (k, _), gr in zip(net.named_parameters(), gs)}
-        aux[backend] = float(loss.total)
+        aux[backend] = float(loss.detach())
         del net, gs, loss
     errs = _rel_l2(grads["cuda"], grads["torch"])
     worst = max(errs, key=errs.get)
-    log(f"[train] learner chunk B={n} gradients (block_rules={rules}), kernels vs plain blocks: "
+    log(f"{what} gradients (block_rules={rules}), kernels vs plain blocks: "
         f"worst rel-L2 {errs[worst]:.3e} ({worst}); loss {aux['cuda']:.6f} vs {aux['torch']:.6f}; "
-        f"peak memory {peak['cuda'] / 2**30:.3f} GiB vs {peak['torch'] / 2**30:.3f} GiB")
+        f"peak memory {peak['cuda'] / 2**30:.3f} GiB vs {peak['torch'] / 2**30:.3f} GiB "
+        f"({own['cuda'] / 2**30:.3f} vs {own['torch'] / 2**30:.3f} GiB above the call's start)")
     if not all(torch.isfinite(v).all() for v in grads["cuda"].values()):
-        raise AssertionError("learner gradients on the card are not finite")
+        raise AssertionError(f"{what}: gradients on the card are not finite")
     if errs[worst] >= GRAD_REL_L2:
-        raise AssertionError(f"learner gradients disagree: {errs}")
-    return {"rel_l2": errs, "peak_bytes": peak}
+        raise AssertionError(f"{what}: gradients disagree: {errs}")
+    return {"rel_l2": errs, "peak_bytes": peak, "call_peak_bytes": own}
+
+
+def phase_train_grads(dev, states):
+    """One learner chunk (B = len(states) Pong states: 2560, the fused
+    trainer's; 128, the sync trainer's) through the a3c loss's gradients,
+    kernels against plain blocks (:func:`grads_kernels_vs_plain`)."""
+    import torch
+
+    from distributed_ba3c_tpu_torch.config import BA3CConfig
+    from distributed_ba3c_tpu_torch.parallel.train_step import learner_grads
+
+    n = states.shape[0]
+    g = torch.Generator(device=dev).manual_seed(2)
+    actions = torch.randint(0, 6, (n,), generator=g, device=dev)
+    returns = torch.randn((n,), generator=g, device=dev)
+
+    def grads_of(net):
+        gs, loss = learner_grads(net, BA3CConfig(), states, actions, returns, 0.01,
+                                 grad_chunk_samples=n)
+        return gs, loss.total
+
+    return grads_kernels_vs_plain(dev, grads_of, f"[train] learner chunk B={n}")
 
 
 def phase_train_cli(dev):
@@ -1212,10 +1242,11 @@ def _hist_p99_us(role: str, name: str) -> float:
     return float("nan")
 
 
-def _sync_run(argv, dev):
-    """One ``--trainer tpu_sync_ba3c`` CLI run: its wall time, its launches
-    and the telemetry deltas of every role it feeds. The histograms it
-    reads (step_s, feed_wait_s, serve_latency_s) are reset first."""
+def _sync_run(argv, dev, tag: str = "[sync]"):
+    """One CLI run of a ZMQ trainer (``tpu_sync_ba3c``, ``tpu_vtrace_ba3c``):
+    its wall time, its launches and the telemetry deltas of every role it
+    feeds. The histograms it reads (step_s, feed_wait_s, serve_latency_s)
+    are reset first."""
     from distributed_ba3c_tpu_torch import telemetry
     from distributed_ba3c_tpu_torch.cli import main as cli_main
 
@@ -1229,7 +1260,7 @@ def _sync_run(argv, dev):
     rc = cli_main([*argv, "--device", str(dev)])
     wall = time.perf_counter() - t0
     if rc != 0:
-        raise AssertionError(f"[sync] {argv} returned {rc}")
+        raise AssertionError(f"{tag} {argv} returned {rc}")
     out = {"wall_s": wall, "launches": launch_counts(),
            **{r: _delta(_tele(r), before[r]) for r in roles}}
     out["serve_p99_us"] = _hist_p99_us("predictor", "serve_latency_s")
@@ -1244,29 +1275,30 @@ def _sync_run(argv, dev):
     return out
 
 
-def _sync_checks(run, steps: int, exact_serving: bool):
-    """The [sync] invariants of one run (see phase_sync)."""
+def _sync_checks(run, steps: int, exact_serving: bool, tag: str = "[sync]",
+                 samples_per_step: int = SYNC_B):
+    """The invariants of one ZMQ-trainer run (see phase_sync)."""
     L, P, M = run["launches"], run["predictor"], run["master"]
     batches = int(P["batches_total"])
     want = {"conv_block_vjp": 4 * steps, "conv_block_route": 4 * steps,
             "conv_block_dgrad": 3 * steps, "conv_block_wgrad": 4 * steps}
     got = {k: L[k] for k in want}
     if got != want:
-        raise AssertionError(f"[sync] backward launches {got}, expected {want} (4/4/3/4 a step)")
+        raise AssertionError(f"{tag} backward launches {got}, expected {want} (4/4/3/4 a step)")
     serve_fwd = L["conv_block_fwd"] - 4 * steps
     if exact_serving and serve_fwd != 4 * (batches + SYNC_BUCKETS):
         raise AssertionError(
-            f"[sync] {L['conv_block_fwd']} forward launches: not 4 a learner step ({steps}) "
+            f"{tag} {L['conv_block_fwd']} forward launches: not 4 a learner step ({steps}) "
             f"+ 4 a served batch ({batches}) + 4 a warmup bucket ({SYNC_BUCKETS})")
     if serve_fwd < 4 * batches:
-        raise AssertionError(f"[sync] {serve_fwd} serving forwards for {batches} batches")
+        raise AssertionError(f"{tag} {serve_fwd} serving forwards for {batches} batches")
     if P["param_publishes_total"] < steps:  # --publish_every 1
-        raise AssertionError(f"[sync] {P['param_publishes_total']} publishes for {steps} steps")
-    if M["datapoints_total"] < steps * SYNC_B:
-        raise AssertionError(f"[sync] {M['datapoints_total']} datapoints for {steps} steps")
+        raise AssertionError(f"{tag} {P['param_publishes_total']} publishes for {steps} steps")
+    if M["datapoints_total"] < steps * samples_per_step:
+        raise AssertionError(f"{tag} {M['datapoints_total']} datapoints for {steps} steps")
     for k in ("corrupt_frames_total", "clients_dropped_total", "blocks_rejected_total"):
         if M.get(k, 0):
-            raise AssertionError(f"[sync] master {k} = {M[k]}")
+            raise AssertionError(f"{tag} master {k} = {M[k]}")
     # a shed row is answered with a uniform-random action, and a callback
     # that raised is logged and skipped: either would let a broken plane
     # pass. Read up to the last epoch's end: the teardown sheds by design
@@ -1274,11 +1306,11 @@ def _sync_checks(run, steps: int, exact_serving: bool):
     for role, k in (("master", "predictor_shed_fallbacks_total"),
                     ("predictor", "sheds_total"), ("predictor", "callback_errors_total")):
         if k not in end[role]:
-            raise AssertionError(f"[sync] stat.json holds no tele/{role}/{k}")
+            raise AssertionError(f"{tag} stat.json holds no tele/{role}/{k}")
         if end[role][k]:
-            raise AssertionError(f"[sync] {role} {k} = {end[role][k]} by the last epoch's end")
+            raise AssertionError(f"{tag} {role} {k} = {end[role][k]} by the last epoch's end")
     if P.get("callback_errors_total", 0):
-        raise AssertionError(f"[sync] predictor callback_errors_total = {P['callback_errors_total']}")
+        raise AssertionError(f"{tag} predictor callback_errors_total = {P['callback_errors_total']}")
 
 
 def _sync_numbers(run, steps: int) -> dict:
@@ -1483,6 +1515,301 @@ def phase_plane_alone(dev, seconds: float = 5.0) -> dict:
     return out
 
 
+VT_T = 5                         # local_time_max: a V-trace segment's steps
+VT_SEGS = SYNC_B // VT_T         # n_seg = batch_size // local_time_max = 25
+VT_B = VT_T * VT_SEGS + VT_SEGS  # the learner's one forward: 150 states
+VT_STEPS = 100                   # learner steps per epoch of the [vtrace] runs
+
+
+def vtrace_batch(dev, states, T: int, n: int, seed: int = 3) -> dict:
+    """A time-major V-trace batch of ``n`` segments of ``T`` steps over
+    ``states`` (``T*n + n`` frame stacks: the segments', then the
+    bootstrap states), with seeded actions, rewards, dones and behaviour
+    log-probs around log(1/6), so the importance weights fall both sides
+    of the clip."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {
+        "state": states[: T * n].reshape(T, n, *states.shape[1:]),
+        "action": torch.randint(0, 6, (T, n), generator=g, device=dev, dtype=torch.int32),
+        "reward": torch.randint(-1, 2, (T, n), generator=g, device=dev).float(),
+        "done": (torch.rand((T, n), generator=g, device=dev) < 0.05).float(),
+        "behavior_log_probs": math.log(1 / 6) + 0.05 * torch.randn(
+            (T, n), generator=g, device=dev),
+        "bootstrap_state": states[T * n: T * n + n],
+    }
+
+
+def phase_vtrace(dev, states, sync_numbers: dict):
+    """The V-trace trainer through its entry point at full width:
+    ``--trainer tpu_vtrace_ba3c --env cpp:pong --wire block-shm
+    --simulator_procs 64`` (4 native env servers of 16 envs; the master
+    emits 5-step segments with the served log-probs; 25 segments a learner
+    step, one forward over 150 states) for 2 epochs of VT_STEPS steps, then
+    a ``--load`` resume of one epoch. Each run: 4 forward, 4 route, 3 dgrad
+    and 4 wgrad launches a learner step, 4 forwards a served batch,
+    125 datapoints a step, block-shm messages, no corrupt frame, rejected
+    block, dropped client, shed row or failed callback (``_sync_checks``);
+    ``mean_rho`` in (0, 1]. Then a B=150 learner batch's gradients,
+    kernels against plain blocks, the kernels timed at B=150 and the
+    V-trace step timed on the card; the numbers beside ``[sync]``'s."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distributed_ba3c_tpu_torch.config import BA3CConfig
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+    from distributed_ba3c_tpu_torch.parallel.train_step import create_train_state
+    from distributed_ba3c_tpu_torch.parallel.vtrace_step import (
+        _make_vtrace_loss_fn,
+        make_vtrace_train_step,
+    )
+
+    tag = "[vtrace]"
+    spb = VT_SEGS * VT_T
+    base = ["--task", "train", "--trainer", "tpu_vtrace_ba3c", "--batch_size", str(SYNC_B),
+            "--local_time_max", str(VT_T), "--steps_per_epoch", str(VT_STEPS),
+            "--nr_eval", "0", "--env", "cpp:pong", "--wire", "block-shm",
+            "--simulator_procs", str(SYNC_SIMS)]
+    with tempfile.TemporaryDirectory() as logdir:
+        first = _sync_run([*base, "--max_epoch", "2", "--logdir", logdir], dev, tag)
+        resumed = _sync_run([*base, "--max_epoch", "1", "--logdir", logdir,
+                             "--load", os.path.join(logdir, "checkpoints")], dev, tag)
+        with open(os.path.join(logdir, "stat.json")) as f:
+            all_stats = json.load(f)
+    steps = [r["global_step"] for r in all_stats]
+    log(f"{tag} cpp:pong block-shm: global_step per epoch {steps}")
+    if steps != [VT_STEPS, 2 * VT_STEPS, 3 * VT_STEPS]:
+        raise AssertionError(f"{tag} the --load run did not continue at the saved step")
+    for rec in all_stats:
+        for k in ("loss", "entropy", "grad_norm", "mean_rho"):
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"{tag} epoch {rec['epoch']}: {k} = {rec[k]}")
+        if not 0.0 < rec["mean_rho"] <= 1.0:
+            raise AssertionError(f"{tag} epoch {rec['epoch']}: mean_rho {rec['mean_rho']}")
+    for run, n in ((first, 2 * VT_STEPS), (resumed, VT_STEPS)):
+        if run["master"]["block_shm_msgs_total"] <= 0:
+            raise AssertionError(f"{tag} no block-shm message reached the master")
+        _sync_checks(run, n, exact_serving=True, tag=tag, samples_per_step=spb)
+        if run["learner"]["train_samples_total"] != n * spb:
+            raise AssertionError(f"{tag} {run['learner']['train_samples_total']} samples "
+                                 f"counted for {n} steps of {spb}")
+    numbers = {"first": _sync_numbers(first, 2 * VT_STEPS),
+               "resumed": _sync_numbers(resumed, VT_STEPS)}
+    numbers["fps"] = [r["fps"] for r in all_stats]
+    numbers["mean_rho"] = [r["mean_rho"] for r in all_stats]
+    numbers["train_queue_depth"] = [r.get("tele/master/train_queue_depth") for r in all_stats]
+    for name in ("first", "resumed"):
+        log(f"{tag} {name}: " + ", ".join(
+            f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in numbers[name].items()))
+    log(f"{tag} stat.json fps {numbers['fps']}, mean_rho {numbers['mean_rho']}; train queue "
+        f"at epoch ends {numbers['train_queue_depth']} segments; beside [sync] in this run: "
+        f"fps {sync_numbers['fps']}, host step "
+        f"{sync_numbers['first']['learner_step_host_ms']:.4g} ms, feed wait "
+        f"{sync_numbers['first']['feed_wait_share']:.4g}")
+
+    # a B=150 learner batch: kernels against plain blocks, and its time
+    x = torch.from_numpy(np.concatenate(states)[:VT_B]).to(dev)
+    batch = vtrace_batch(dev, x, VT_T, VT_SEGS)
+    cfg = BA3CConfig(batch_size=SYNC_B)
+
+    def grads_of(net):
+        total, _ = _make_vtrace_loss_fn(net, cfg, batch, 0.01)()
+        return torch.autograd.grad(total, list(net.parameters())), total
+
+    grad = grads_kernels_vs_plain(dev, grads_of, f"{tag} learner batch B={VT_B}")
+    saved = launch_counts()
+    vjp = phase_vjp(dev, x, detail=True)
+    fwd_rows, _ = phase_kernels(dev, batches=(VT_B,), timed_batches=(VT_B,))
+    net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(net, cfg)
+    step = make_vtrace_train_step(net, state.optimizer, cfg)
+    numbers["learner_step_device_ms"] = time_ms(lambda: step(state, batch, 0.01, 0.0), iters=20)
+    set_launch_counts(saved)
+    numbers["kernel_ms"] = {
+        f"fwd_b{VT_B}": sum(r["ms"] for r in fwd_rows[VT_B] if r["block"] != "block0_uint8"),
+        f"fwd_bwd_b{VT_B}": sum(r["ms"] for r in vjp)}
+    log(f"{tag} the kernels at B={VT_B} (CUDA events, the four blocks summed): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in numbers["kernel_ms"].items())
+        + f"; the V-trace step on the card (lr 0): {numbers['learner_step_device_ms']:.4f} ms")
+    return {"launches": {"train": first["launches"], "resumed": resumed["launches"]},
+            "numbers": numbers, "grad_rel_l2": grad["rel_l2"], "vjp_rows": vjp,
+            "fwd_rows": fwd_rows[VT_B]}
+
+
+OV_B = TRAIN_B + TRAIN_ENVS  # the overlap learner's forward: 2560 + 128 bootstrap = 2688
+OV_STEPS = 5                  # updates per epoch of the [overlap] runs
+#: launches per overlap update: 4 blocks x T actor forwards + 4 for the
+#: learner's one forward over T*B + B states; one backward of each block
+OV_PER_UPDATE = {"conv_block_fwd": 4 * (TRAIN_T + 1), "conv_block_vjp": 4,
+                 "conv_block_route": 4, "conv_block_dgrad": 3, "conv_block_wgrad": 4}
+OV_PRIME = {"conv_block_fwd": 4 * TRAIN_T}  # the priming window of each run
+
+
+def _overlap_parts(dev, lag: int = 1, seed: int = 0):
+    """The overlap step at the CLI's shape through the API (128 envs x 20,
+    BA3CNet(6) at full width) and its state."""
+    import torch
+
+    from distributed_ba3c_tpu_torch.config import BA3CConfig
+    from distributed_ba3c_tpu_torch.envs.jaxenv import pong
+    from distributed_ba3c_tpu_torch.fused.loop import create_fused_state
+    from distributed_ba3c_tpu_torch.fused.overlap import make_overlap_step
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+
+    cfg = BA3CConfig(batch_size=TRAIN_B)
+    net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(seed))
+    state = create_fused_state(seed, net, cfg, pong, TRAIN_ENVS)
+    step = make_overlap_step(net, state.train.optimizer, cfg, pong, TRAIN_T, lag=lag)
+    return net, step, step.put(state)
+
+
+def phase_overlap(dev, train_cli: dict, train_step: dict):
+    """The fused trainer's ``--overlap`` through its entry point at full
+    width: ``--trainer tpu_fused_ba3c --overlap --env jax:pong`` (128 envs x
+    20, the actor on its own stream beside the learner, lag 1) for 2 epochs
+    of OV_STEPS updates with a 200-step greedy eval each, then a ``--load``
+    resume of one epoch: per update 84 forward launches (80 actor, 4 for
+    the learner's one forward over 2688 states), 4 route, 3 dgrad and 4
+    wgrad, plus each run's priming window of 80 forwards; ``mean_rho`` in
+    (0, 1] and a finite ``value_lag_mae``. Then lag 0 at learning rate 0
+    bit-equal with the fused step over 2 windows on the card; a B=2688
+    learner block's gradients, kernels against plain blocks, and its peak
+    memory; the update timed beside the fused step's; and ``probe_overlap``."""
+    import tempfile
+
+    import torch
+
+    from distributed_ba3c_tpu_torch.cli import main as cli_main
+    from distributed_ba3c_tpu_torch.config import BA3CConfig
+    from distributed_ba3c_tpu_torch.envs.jaxenv import pong
+    from distributed_ba3c_tpu_torch.fused.loop import create_fused_state, make_fused_step
+    from distributed_ba3c_tpu_torch.fused.overlap import TrajBlock, make_block_grads
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+
+    tag = "[overlap]"
+    argv = ["--task", "train", "--trainer", "tpu_fused_ba3c", "--overlap", "--env", "jax:pong",
+            "--batch_size", str(TRAIN_B), "--rollout_len", str(TRAIN_T),
+            "--steps_per_epoch", str(OV_STEPS), "--nr_eval", "8", "--eval_max_steps", "200",
+            "--device", str(dev)]
+    runs = {}
+    with tempfile.TemporaryDirectory() as logdir:
+        for name, extra in (("train", ["--max_epoch", "2"]),
+                            ("resumed", ["--max_epoch", "3", "--load",
+                                         os.path.join(logdir, "checkpoints")])):
+            set_launch_counts({k: 0 for k in COUNTED})
+            t0 = time.perf_counter()
+            rc = cli_main([*argv, *extra, "--logdir", logdir])
+            runs[name] = {"wall_s": time.perf_counter() - t0, "launches": launch_counts()}
+            if rc != 0:
+                raise AssertionError(f"{tag} {name} returned {rc}")
+        with open(os.path.join(logdir, "stat.json")) as f:
+            stats = json.load(f)
+    for name, updates, evals in (("train", 2 * OV_STEPS, 2), ("resumed", OV_STEPS, 1)):
+        want = {k: updates * n + OV_PRIME.get(k, 0) for k, n in OV_PER_UPDATE.items()}
+        want["conv_block_fwd"] += evals * 200 * 4
+        if runs[name]["launches"] != want:
+            raise AssertionError(f"{tag} {name} launches {runs[name]['launches']}, expected {want}")
+    if [r["global_step"] for r in stats] != [OV_STEPS, 2 * OV_STEPS, 3 * OV_STEPS]:
+        raise AssertionError(f"{tag} the --load run did not continue: {stats}")
+    for rec in stats:
+        for k in ("loss", "entropy", "grad_norm", "mean_rho", "value_lag_mae"):
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"{tag} epoch {rec['epoch']}: {k} = {rec[k]}")
+        if not 0.0 < rec["mean_rho"] <= 1.0:
+            raise AssertionError(f"{tag} epoch {rec['epoch']}: mean_rho {rec['mean_rho']}")
+    numbers = {
+        "fps": [r["fps"] for r in stats], "mean_rho": [r["mean_rho"] for r in stats],
+        "value_lag_mae": [r["value_lag_mae"] for r in stats],
+        "fused_fps": [r["fps"] for r in train_cli["epochs"]],
+    }
+    log(f"{tag} cli: launches {runs}; stat.json env-steps/s {numbers['fps']} (the fused "
+        f"trainer's in this run: {numbers['fused_fps']}); mean_rho {numbers['mean_rho']}; "
+        f"value_lag_mae {numbers['value_lag_mae']}")
+
+    # lag 0 at learning rate 0: bit-equal with the fused step on the card
+    cfg = BA3CConfig(batch_size=TRAIN_B)
+    fnet = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(4))
+    fstate = create_fused_state(4, fnet, cfg, pong, TRAIN_ENVS)
+    fstep = make_fused_step(fnet, fstate.train.optimizer, cfg, pong, TRAIN_T)
+    onet, ostep, ostate = _overlap_parts(dev, lag=0, seed=4)
+    saved = launch_counts()
+    for _ in range(2):
+        fstate, fm = fstep(fstate, 0.01, 0.0)
+        ostate, om = ostep(ostate, 0.01, 0.0)
+    torch.cuda.synchronize()
+    same = {
+        "obs_stack": torch.equal(fstate.obs_stack, ostate.actor.obs_stack),
+        "env_state": all(torch.equal(a, b) for a, b in zip(fstate.env_state,
+                                                           ostate.actor.env_state)),
+        **{k: torch.equal(getattr(fstate, k), getattr(ostate.actor, k))
+           for k in ("ep_return", "ep_count", "ep_return_sum")},
+        **{f"metric {k}": torch.equal(fm[k], om[k])
+           for k in ("episodes", "episode_return_sum", "reward_per_step")},
+        "params frozen": all(torch.equal(a, b) for a, b in zip(fnet.parameters(),
+                                                              onet.parameters())),
+    }
+    log(f"{tag} lag 0 at lr 0 against the fused step over 2 windows, bit-equal: {same}; "
+        f"mean_rho {float(om['mean_rho']):.7f}")
+    if not all(same.values()) or abs(float(om["mean_rho"]) - 1.0) > 1e-5:
+        raise AssertionError(f"{tag} lag 0 is not the fused step: {same}")
+    del fnet, fstate, fstep, onet, ostep, ostate
+
+    # a B=2688 learner block: kernels against plain blocks, and its memory
+    states = pong_train_states(dev, steps=TRAIN_T + 1)
+    g = torch.Generator(device=dev).manual_seed(5)
+    T, n = TRAIN_T, TRAIN_ENVS
+    block = TrajBlock(
+        states=states[: T * n].reshape(T, n, 84, 84, 4),
+        actions=torch.randint(0, 6, (T, n), generator=g, device=dev, dtype=torch.int32),
+        rewards=torch.randint(-1, 2, (T, n), generator=g, device=dev).float(),
+        dones=(torch.rand((T, n), generator=g, device=dev) < 0.05).float(),
+        behavior_log_probs=math.log(1 / 6) + 0.05 * torch.randn((T, n), generator=g, device=dev),
+        behavior_values=0.1 * torch.randn((T, n), generator=g, device=dev),
+        bootstrap_state=states[T * n:],
+    )
+
+    def grads_of(net):
+        gs, aux = make_block_grads(net, cfg)(block, 0.01)
+        return gs, aux["loss"]
+
+    grad = grads_kernels_vs_plain(dev, grads_of, f"{tag} learner block B={OV_B}")
+    flat = torch.cat([block.states.reshape(T * n, 84, 84, 4), block.bootstrap_state])
+    vjp = phase_vjp(dev, flat, detail=True)
+    fwd_rows, _ = phase_kernels(dev, batches=(OV_B,), timed_batches=(OV_B,))
+    del states, block, flat
+
+    # the update beside the fused step's, and the probe
+    net, step, state = _overlap_parts(dev, lag=1)
+    holder = [state]
+
+    def one_update():
+        holder[0], _ = step(holder[0], 0.01, 0.0)
+
+    numbers["update_ms"] = time_ms(one_update, iters=3, warmup=1)
+    numbers["fused_update_ms"] = train_step["update_ms"]
+    holder[0], probe = step.probe_overlap(holder[0], 0.01, 0.0, reps=3)
+    set_launch_counts(saved)
+    numbers["probe"] = probe
+    numbers["env_steps_per_s"] = TRAIN_B / numbers["update_ms"] * 1e3
+    numbers["learner_peak_gib"] = grad["peak_bytes"]["cuda"] / 2**30
+    numbers["learner_call_peak_gib"] = grad["call_peak_bytes"]["cuda"] / 2**30
+    numbers["kernel_ms"] = {
+        f"fwd_b{OV_B}": sum(r["ms"] for r in fwd_rows[OV_B] if r["block"] != "block0_uint8"),
+        f"fwd_bwd_b{OV_B}": sum(r["ms"] for r in vjp)}
+    log(f"{tag} update {numbers['update_ms']:.3f} ms ({numbers['env_steps_per_s']:.1f} "
+        f"env-steps/s; the fused update in this run {numbers['fused_update_ms']:.3f} ms); "
+        f"probe_overlap: " + ", ".join(f"{k} {v}" for k, v in probe.items())
+        + f"; learner peak memory {numbers['learner_peak_gib']:.3f} GiB "
+        f"({numbers['learner_call_peak_gib']:.3f} above the call's start); kernels "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in numbers["kernel_ms"].items()))
+    return {"launches": {k: v["launches"] for k, v in runs.items()}, "numbers": numbers,
+            "grad_rel_l2": grad["rel_l2"], "vjp_rows": vjp, "fwd_rows": fwd_rows[OV_B]}
+
+
 #: the launch counts the paths are read by: each kernel wrapper's, and
 #: conv_block's backward passes on the card (conv_block_vjp)
 COUNTED = ("conv_block_fwd", "conv_block_vjp", "conv_block_route", "conv_block_dgrad",
@@ -1641,14 +1968,29 @@ def main(argv=None) -> int:
 
     sync = phase_sync(dev, states)
     sync_launches = {k: sum(v[k] for v in sync["launches"].values()) for k in COUNTED}
+    vtrace = phase_vtrace(dev, states, sync["numbers"])
+    vtrace_launches = {k: sum(v[k] for v in vtrace["launches"].values()) for k in COUNTED}
+    overlap = phase_overlap(dev, train, step)
+    overlap_launches = {k: sum(v[k] for v in overlap["launches"].values()) for k in COUNTED}
+    for name, got in (("vtrace", vtrace_launches), ("overlap", overlap_launches)):
+        if not all(got.values()):
+            raise AssertionError(f"[{name}] a kernel of the path never launched: {got}")
 
     path = [r for r in rows if r["block"] != "block0_uint8"]
     fwd_by_path = {"serve": serve_launches, "play": play_launches,
                    "train": train_launches["conv_block_fwd"], "resume": resume_fwd,
-                   "sync": sync_launches["conv_block_fwd"]}
+                   "sync": sync_launches["conv_block_fwd"],
+                   "vtrace": vtrace_launches["conv_block_fwd"],
+                   "overlap": overlap_launches["conv_block_fwd"]}
     bwd_by_path = {k: {"train": train_launches[k], "resume": resume["launches"]["train"][k],
-                       "sync": sync_launches[k]}
+                       "sync": sync_launches[k], "vtrace": vtrace_launches[k],
+                       "overlap": overlap_launches[k]}
                    for k in COUNTED if k != "conv_block_fwd"}
+    fwd_ms_at = {nb: {k: sum(r[k] for r in rs if r["block"] != "block0_uint8")
+                      for k in ("ms", "plain_ms", "library_ms")}
+                 for nb, rs in ((150, vtrace["fwd_rows"]), (2688, overlap["fwd_rows"]))}
+    vjp_ms_at = {nb: {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms")}
+                 for nb, rows in ((150, vtrace["vjp_rows"]), (2688, overlap["vjp_rows"]))}
     bwd_src = "distributed_ba3c_tpu_torch/csrc/conv_block_bwd.cu"
     kernels = [{
         "name": "conv_block_fwd",
@@ -1667,6 +2009,7 @@ def main(argv=None) -> int:
         "shapes": "the four blocks of one BA3CNet forward at B=256 (sums); per_block below",
         "per_block": rows,
         f"per_block_b{TRAIN_B}": rows_by_b[TRAIN_B],
+        "ms_model_path_by_batch": fwd_ms_at,
         "parity_batches": list(KERNEL_BATCHES),
     }, {
         "name": "conv_block_vjp",
@@ -1688,6 +2031,9 @@ def main(argv=None) -> int:
                    "per_block below"),
         "per_block": vjp_rows,
         "pallas_rules_ms": sum(r["ms"] for r in other),
+        "ms_by_batch": vjp_ms_at,
+        "per_block_b150": vtrace["vjp_rows"],
+        "per_block_b2688": overlap["vjp_rows"],
         "parity_batches": list(BWD_BATCHES),
     }]
     for name in ("route", "dgrad", "wgrad"):
@@ -1711,7 +2057,11 @@ def main(argv=None) -> int:
     log(json.dumps({"serving": serve, "model_forward_ms": fwd, "play_launches": play_launches,
                     "train": {"cli": train, "step": step, "grad_rel_l2": grad["rel_l2"],
                               "learner_peak_bytes": grad["peak_bytes"]},
-                    "resume": resume, "sync": sync, "packages": probe}))
+                    "resume": resume, "sync": sync,
+                    "vtrace": {k: v for k, v in vtrace.items() if k not in ("vjp_rows", "fwd_rows")},
+                    "overlap": {k: v for k, v in overlap.items()
+                                if k not in ("vjp_rows", "fwd_rows")},
+                    "packages": probe}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -157,6 +157,48 @@ class BlockStatesView:
         return arr
 
 
+class SegStates:
+    """Lazy ``[T, H, W, hist]`` states of ONE env column over T block steps
+    (a V-trace segment's ``"state"``).
+
+    The flush keeps references to the T per-step state objects (ring
+    window views on the block-shm wire) instead of stacking the column, so
+    the bytes are copied once, where they are consumed:
+    ``materialize_into`` writes the column into a staging stripe,
+    ``__array__`` serves every other consumer. Holding the views until
+    collate is what the ring's capacity formula budgets: a queued segment
+    counts ``ring_steps_per_item = unroll_len`` ring steps.
+    """
+
+    __slots__ = ("states", "j", "shape")
+
+    def __init__(self, states: list, j: int):
+        self.states = states  # T per-step [B, H, W, hist] state objects
+        self.j = int(j)
+        self.shape = (len(states), *tuple(np.shape(states[0]))[1:])
+
+    @property
+    def dtype(self):
+        return getattr(self.states[0], "dtype", np.dtype(np.uint8))
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __array__(self, dtype=None, copy=None):
+        out = np.stack([s[self.j] for s in self.states])
+        if dtype is not None and dtype != out.dtype:
+            out = out.astype(dtype)
+        return out
+
+    def materialize_into(self, out: np.ndarray) -> np.ndarray:
+        """Write the env column into ``out[T, H, W, hist]`` (a staging
+        stripe view) in one pass."""
+        j = self.j
+        for t, s in enumerate(self.states):
+            out[t] = s[j]
+        return out
+
+
 class BlockClientState:
     """Per-BLOCK state: one env-server process = one wire client = B envs.
 
@@ -298,6 +340,9 @@ class SimulatorMaster(threading.Thread):
     thread drains ``send_queue`` so predictor callbacks never block on the
     socket.
     """
+
+    #: ring steps one queued train item pins (see :meth:`min_ring_cap`)
+    ring_steps_per_item = 1
 
     def __init__(
         self,
@@ -631,35 +676,44 @@ class SimulatorMaster(threading.Thread):
             del self.clients[ident]
             blk.close()
 
+    def min_ring_cap(self, n_envs: int, hist: int) -> float:
+        """The block-shm ring capacity floor of this master's buffering
+        (``utils/shm.py::min_safe_cap``): the attach-time check refuses a
+        ring at or below it, and the CLI sizes the rings it creates from
+        it. A queued item pins ``ring_steps_per_item`` ring steps (1 for an
+        n-step datapoint, the unroll for a V-trace segment)."""
+        from distributed_ba3c_tpu_torch.utils.shm import min_safe_cap
+
+        maxsize = int(getattr(getattr(self, "queue", None), "maxsize", 0) or 0)
+        if maxsize <= 0:
+            raise ValueError(
+                "block-shm wire needs a BOUNDED train queue: queue "
+                "backpressure is what stops ring slots from being "
+                "overwritten under live datapoints"
+            )
+        horizon = int(
+            getattr(self, "local_time_max", 0) or getattr(self, "unroll_len", 0)
+        )
+        return min_safe_cap(
+            n_envs, maxsize, int(self.feed_batch),
+            int(self.ring_steps_per_item), horizon, hist,
+        )
+
     def _shm_states(self, blk, meta, step: int, dones: np.ndarray):
         """Build the step's lazy states view from the client's shm ring."""
         n_envs, ring_name, cap, h, w, hist = meta[2:8]
         if blk.ring is None:
-            from distributed_ba3c_tpu_torch.utils.shm import ShmRing, min_safe_cap
+            from distributed_ba3c_tpu_torch.utils.shm import ShmRing
 
             # safety contract (utils/shm.py): a datapoint's backing slot
             # must not be reusable while the datapoint can still be alive
-            q = getattr(self, "queue", None)
-            maxsize = getattr(q, "maxsize", 0)
-            horizon = int(
-                getattr(self, "local_time_max", 0)
-                or getattr(self, "unroll_len", 0)
-            )
-            if maxsize <= 0:
-                raise ValueError(
-                    "block-shm wire needs a BOUNDED train queue: queue "
-                    "backpressure is what stops ring slots from being "
-                    "overwritten under live datapoints"
-                )
-            span = int(getattr(self, "ring_steps_per_item", 1))
-            feed = int(getattr(self, "feed_batch", 0))
-            needed = min_safe_cap(n_envs, maxsize, feed, span, horizon, hist)
+            needed = self.min_ring_cap(n_envs, hist)
             if cap <= needed:
                 raise ValueError(
                     f"shm ring cap {cap} too small for train queue "
-                    f"maxsize {maxsize} (+{feed} feed holder) x {span} "
-                    f"steps/item at B={n_envs} (+{horizon}-step flush "
-                    f"horizon): need > {needed:.0f} — shrink the queue or "
+                    f"maxsize {self.queue.maxsize} (+{self.feed_batch} feed "
+                    f"holder) x {self.ring_steps_per_item} steps/item at "
+                    f"B={n_envs}: need > {needed:.0f} — shrink the queue or "
                     "pass a larger shm_ring_cap to the env server"
                 )
             blk.ring = ShmRing.attach(ring_name, cap, n_envs, h, w)

@@ -2,12 +2,17 @@
 
 Port of the JAX package's ``cli.py``: ``--task train`` with ``--trainer
 tpu_sync_ba3c`` (the default: the ZMQ actor plane and the synchronous
-learner, ``_run_sync``) or ``tpu_fused_ba3c`` (the fused on-device
-rollout+update), ``--task eval`` (``_run_eval``) and ``--task play``
+learner, ``_run_sync``), ``tpu_vtrace_ba3c`` (the same plane feeding
+V-trace rollout segments to the V-trace learner, also ``_run_sync``) or
+``tpu_fused_ba3c`` (the fused on-device rollout+update; with ``--overlap``
+the actor and the learner on two CUDA streams, lag 1 corrected by
+V-trace), ``--task eval`` (``_run_eval``) and ``--task play``
 (``_run_play``)::
 
     python -m distributed_ba3c_tpu_torch --env cpp:pong
+    python -m distributed_ba3c_tpu_torch --trainer tpu_vtrace_ba3c --env cpp:pong
     python -m distributed_ba3c_tpu_torch --task train --trainer tpu_fused_ba3c --env jax:pong
+    python -m distributed_ba3c_tpu_torch --trainer tpu_fused_ba3c --overlap --env jax:pong
     python -m distributed_ba3c_tpu_torch --task play --env cpp:pong
     python -m distributed_ba3c_tpu_torch --task eval --env fake --nr_eval 8
 
@@ -17,12 +22,12 @@ raises). eval and play serve the policy through :class:`BatchedPredictor`
 ``--load <logdir>/checkpoints``, or of a seeded init (``--seed``) without
 it. ``--task train --load`` resumes a run from its checkpoints.
 
-The sync trainer runs one local fleet (``fake`` simulators or ``cpp:``
-env servers) started with the trainer, as Tensorpack did; the JAX CLI's
-fleet supervision and autoscaling, ``--fleets``, remote fleets
-(``--env zmq:``), ``gym:``/``jax:`` players, the serving plane's replicas,
-canary and shadow policies, and the tracing plane are not ported yet
-(ROADMAP queue A).
+The sync and V-trace trainers run one local fleet (``fake`` simulators or
+``cpp:`` env servers) started with the trainer, as Tensorpack did; the JAX
+CLI's fleet supervision and autoscaling, ``--fleets``, ``--fleet_accum``,
+remote fleets (``--env zmq:``), ``gym:``/``jax:`` players, the serving
+plane's replicas, canary and shadow policies, int8 and the tracing plane
+are not ported yet (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -33,12 +38,8 @@ from typing import Optional
 
 from distributed_ba3c_tpu_torch.config import BA3CConfig
 
-#: the JAX CLI's trainers, and what each waits for in the port (None: ported)
-TRAINERS = {
-    "tpu_sync_ba3c": None,
-    "tpu_fused_ba3c": None,
-    "tpu_vtrace_ba3c": "ROADMAP queue A item 4 (the V-trace trainer)",
-}
+#: the JAX CLI's trainers, every one ported
+TRAINERS = ("tpu_sync_ba3c", "tpu_vtrace_ba3c", "tpu_fused_ba3c")
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -48,10 +49,11 @@ def make_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--task", default="train", choices=["train", "eval", "play"])
     p.add_argument(
-        "--trainer", default="tpu_sync_ba3c", choices=sorted(TRAINERS),
+        "--trainer", default="tpu_sync_ba3c", choices=TRAINERS,
         help="learner backend for --task train: tpu_sync_ba3c (the ZMQ "
-        "actor plane and the synchronous learner) or tpu_fused_ba3c (the "
-        "fused on-device rollout+update); tpu_vtrace_ba3c is not ported yet",
+        "actor plane and the synchronous learner), tpu_vtrace_ba3c (the "
+        "same plane, V-trace off-policy learner over rollout segments) or "
+        "tpu_fused_ba3c (the fused on-device rollout+update)",
     )
     p.add_argument(
         "--env", default="fake",
@@ -143,7 +145,14 @@ def make_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--steps_per_dispatch", type=int, default=1,
-        help="updates per step call (must divide --steps_per_epoch)",
+        help="updates per step call (must divide --steps_per_epoch); with "
+        "--overlap, actor/learner pairs per call",
+    )
+    p.add_argument(
+        "--overlap", action="store_true",
+        help="fused trainer: split the fused step into an actor and a "
+        "learner on two CUDA streams -- rollout k+1 runs beside learner k "
+        "(policy lag 1, V-trace-corrected)",
     )
     p.add_argument("--entropy_beta_final", type=float, default=None, help="anneal entropy beta to this over max_epoch")
     p.add_argument("--learning_rate_final", type=float, default=None, help="anneal LR to this over max_epoch")
@@ -231,13 +240,11 @@ def _sync_fleet(args, cfg: BA3CConfig, c2s: str, s2c: str, master) -> list:
 
         def ring_cap(b: int):
             # sized from this run's buffering by the formula the master's
-            # attach-time check uses, with 25% headroom
+            # attach-time check uses (a V-trace segment pins its whole
+            # unroll), with 25% headroom
             if wire != "block-shm":
                 return None
-            need = shm.min_safe_cap(
-                b, int(master.queue.maxsize), int(master.feed_batch), 1,
-                int(master.local_time_max), cfg.frame_history,
-            )
+            need = master.min_ring_cap(b, cfg.frame_history)
             return max(
                 native.CppEnvServerProcess.SHM_RING_MIN_CAP,
                 native.CppEnvServerProcess.SHM_RING_STEPS // max(1, b),
@@ -276,7 +283,12 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
     :class:`BA3CSimulatorMaster` (n-step returns) -> the train queue ->
     :class:`TrainFeed` (staged collate) -> :class:`DeviceIngest` -> the
     sync learner step, with the params published to the
-    :class:`BatchedPredictor` that serves the fleet."""
+    :class:`BatchedPredictor` that serves the fleet.
+
+    ``--trainer tpu_vtrace_ba3c`` swaps three parts of that path: the
+    :class:`VTraceSimulatorMaster` (``local_time_max``-step segments with
+    the served log-probs), the :class:`RolloutFeed` of ``n_seg =
+    batch_size // local_time_max`` segments, and the V-trace step."""
     import os
     import queue
 
@@ -284,12 +296,14 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
 
     from distributed_ba3c_tpu_torch.actors.master import BA3CSimulatorMaster
     from distributed_ba3c_tpu_torch.actors.simulator import default_pipes
-    from distributed_ba3c_tpu_torch.data.dataflow import TrainFeed
+    from distributed_ba3c_tpu_torch.actors.vtrace_master import VTraceSimulatorMaster
+    from distributed_ba3c_tpu_torch.data.dataflow import RolloutFeed, TrainFeed
     from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
     from distributed_ba3c_tpu_torch.parallel.train_step import (
         create_train_state,
         make_train_step,
     )
+    from distributed_ba3c_tpu_torch.parallel.vtrace_step import make_vtrace_train_step
     from distributed_ba3c_tpu_torch.predict.server import BatchedPredictor
     from distributed_ba3c_tpu_torch.train.callbacks import (
         Evaluator,
@@ -307,9 +321,10 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
 
     if args.env.startswith(("jax:", "gym:", "zmq:")):
         raise SystemExit(
-            f"--trainer tpu_sync_ba3c --env {args.env}: not ported yet (the "
-            "port's sync trainer runs fake or cpp:<game>; see ROADMAP)"
+            f"--trainer {args.trainer} --env {args.env}: not ported yet (the "
+            "port's ZMQ trainers run fake or cpp:<game>; see ROADMAP)"
         )
+    vtrace = args.trainer == "tpu_vtrace_ba3c"
     device = resolve_device(args.device)
     if args.wire_crc:
         # here AND in the env var: spawned env servers read it at import
@@ -331,7 +346,14 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
 
     model = build_net()
     state = create_train_state(model, cfg)
-    step = make_train_step(model, state.optimizer, cfg)
+    if vtrace:
+        step = make_vtrace_train_step(model, state.optimizer, cfg)
+        # segments a learner batch: ~batch_size transitions
+        per_step_items = max(1, cfg.batch_size // cfg.local_time_max)
+        samples_per_step = per_step_items * cfg.local_time_max
+    else:
+        step = make_train_step(model, state.optimizer, cfg)
+        per_step_items = samples_per_step = cfg.batch_size
     if args.pipe_c2s and args.pipe_s2c:
         c2s, s2c = args.pipe_c2s, args.pipe_s2c
     elif args.pipe_c2s or args.pipe_s2c:
@@ -346,13 +368,21 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
     )
     # every serving bucket once now, not under the fleet's first requests
     predictor.warmup(cfg.state_shape)
-    master = BA3CSimulatorMaster(
-        c2s, s2c, predictor, gamma=cfg.gamma,
-        local_time_max=cfg.local_time_max, score_queue=score_q,
-        actor_timeout=args.actor_timeout or None, reward_clip=cfg.reward_clip,
-    )
+    if vtrace:
+        master = VTraceSimulatorMaster(
+            c2s, s2c, predictor, unroll_len=cfg.local_time_max,
+            score_queue=score_q, actor_timeout=args.actor_timeout or None,
+            reward_clip=cfg.reward_clip,
+        )
+    else:
+        master = BA3CSimulatorMaster(
+            c2s, s2c, predictor, gamma=cfg.gamma,
+            local_time_max=cfg.local_time_max, score_queue=score_q,
+            actor_timeout=args.actor_timeout or None,
+            reward_clip=cfg.reward_clip,
+        )
     # ring-safety input: the feed's collate holder pins ring views too
-    master.feed_batch = cfg.batch_size
+    master.feed_batch = per_step_items
     try:
         procs = _sync_fleet(args, cfg, c2s, s2c, master)
     except BaseException:
@@ -366,13 +396,16 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
         )
 
         staging = HostStagingRing(pin_memory=device.type == "cuda")
-    feed = TrainFeed(master.queue, cfg.batch_size, staging=staging)
+    feed_cls = RolloutFeed if vtrace else TrainFeed
+    feed = feed_cls(master.queue, per_step_items, staging=staging)
     if staging is not None:
         feed = DeviceIngest(feed, device)
     logger.info(
-        "sync trainer on %s: %d %s over %s, batch %d, local_time_max %d",
-        device, len(procs), type(procs[0]).__name__ if procs else "processes",
-        c2s, cfg.batch_size, cfg.local_time_max,
+        "%s on %s: %d %s over %s, %d %s a step, local_time_max %d",
+        args.trainer, device, len(procs),
+        type(procs[0]).__name__ if procs else "processes", c2s,
+        per_step_items, "segments" if vtrace else "datapoints",
+        cfg.local_time_max,
     )
 
     run_eval = args.nr_eval > 0
@@ -415,7 +448,7 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
         ),
         cfg, step, state, feed, callbacks,
         predictor=predictor, score_queue=score_q,
-        samples_per_step=cfg.batch_size,
+        samples_per_step=samples_per_step,
     )
     if args.load:
         trainer.restore(args.load)
@@ -491,14 +524,12 @@ def main(argv: Optional[list] = None) -> int:
     args = parser.parse_args(argv)
     if args.nr_eval is None:
         args.nr_eval = 8
+    if args.overlap and not (
+        args.task == "train" and args.trainer == "tpu_fused_ba3c"
+    ):
+        parser.error("--overlap needs --task train --trainer tpu_fused_ba3c")
     if args.task == "train":
-        waits_for = TRAINERS[args.trainer]
-        if waits_for is not None:
-            parser.error(
-                f"--trainer {args.trainer} is not ported yet: it waits for "
-                f"{waits_for}"
-            )
-        if args.trainer == "tpu_sync_ba3c":
+        if args.trainer != "tpu_fused_ba3c":
             return _run_sync(args, build_config(args))
         from distributed_ba3c_tpu_torch.fused.loop import run_fused_training
 

@@ -1,13 +1,12 @@
 """The train-queue batcher: datapoints -> collated batches on a thread.
 
-Port of ``distributed_ba3c_tpu/data/dataflow.py:91-260`` (``_BatchFeed``,
-``collate_train``, ``TrainFeed``). The reference's
-``QueueInput``/``EnqueueThread`` job, moving batch assembly off the
-learner's thread, is done by the feed's batcher thread. ``RolloutFeed``
-(the V-trace trainer) and ``FleetMergeFeed`` (``--fleets``) are not ported
-yet (ROADMAP queue A items 4 and 8), nor the tracing rider the JAX feed
-strips. The staged collate writes into the pinned ring of
-``data/staging.py``.
+Port of ``distributed_ba3c_tpu/data/dataflow.py:91-272`` (``_BatchFeed``,
+``collate_train``, ``collate_rollout``, ``TrainFeed``, ``RolloutFeed``).
+The reference's ``QueueInput``/``EnqueueThread`` job, moving batch
+assembly off the learner's thread, is done by the feed's batcher thread.
+``FleetMergeFeed`` (``--fleets``) is not ported yet (ROADMAP queue A item
+8), nor the tracing rider the JAX feed strips. The staged collate writes
+into the pinned ring of ``data/staging.py``.
 """
 
 from __future__ import annotations
@@ -126,6 +125,27 @@ def collate_train(holder: List[list]) -> Dict[str, np.ndarray]:
     }
 
 
+def collate_rollout(holder: List[dict]) -> Dict[str, np.ndarray]:
+    """V-trace segment dicts -> time-major [T, B] arrays.
+
+    The compat path, copy-accounted like :func:`collate_train`: the obs
+    bytes pay a coercion pass (lazy ``SegStates`` columns), a stack pass
+    and the time-major copy; the staged collate
+    (``data/staging.py::collate_rollout_into``) writes them once."""
+    from distributed_ba3c_tpu_torch.data.staging import count_legacy_copies
+
+    lazy = hasattr(holder[0]["state"], "materialize_into")
+    count_legacy_copies(3.0 if lazy else 2.0)
+    batch = {}
+    for k in ("state", "action", "reward", "done", "behavior_log_probs"):
+        stacked = np.stack([np.asarray(seg[k]) for seg in holder], axis=0)  # [B,T,...]
+        batch[k] = np.swapaxes(stacked, 0, 1).copy()  # [T,B,...]
+    batch["bootstrap_state"] = np.stack(
+        [np.asarray(seg["bootstrap_state"]) for seg in holder]
+    )
+    return batch
+
+
 class TrainFeed(_BatchFeed):
     """[state, action, R] datapoints -> flat {state, action, return} batches."""
 
@@ -133,3 +153,14 @@ class TrainFeed(_BatchFeed):
 
     def _collate(self, holder: List[list]) -> Dict[str, np.ndarray]:
         return collate_train(holder)
+
+
+class RolloutFeed(_BatchFeed):
+    """V-trace segment dicts -> time-major [T, B] batches: ``batch_size``
+    segments stacked on a batch axis, time in front (the reverse scan's
+    layout, ops/vtrace.py)."""
+
+    _kind = "rollout"
+
+    def _collate(self, holder: List[dict]) -> Dict[str, np.ndarray]:
+        return collate_rollout(holder)

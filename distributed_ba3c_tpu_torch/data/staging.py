@@ -6,8 +6,10 @@ Port of ``distributed_ba3c_tpu/data/staging.py`` (``HostStagingRing``,
 
 - :class:`HostStagingRing`: a small ring of preallocated slots shaped like
   one collated batch. On a CUDA run the slots are **pinned** CPU tensors,
-  written through numpy views by the in-place collate
-  (:func:`collate_train_into`): ONE host copy per batch, counted on
+  written through numpy views by the in-place collates
+  (:func:`collate_train_into`, :func:`collate_rollout_into`, the V-trace
+  trainer's time-major ``[T, B, 84, 84, 4]`` states and ``[B, ...]``
+  bootstrap states): ONE host copy per batch, counted on
   ``ingest_copies_total``.
 - **The fence**: a slot handed to an H2D copy is not writable again until
   the copy has consumed its bytes. The JAX package fences on the device
@@ -26,8 +28,8 @@ On the CPU nothing is pinned (``pin_memory`` needs CUDA): the "transfer" is
 a ``clone`` (a CPU ``.to`` would alias the slot) and the fence is open at
 once.
 
-The V-trace rollout collate and the pod learner's ``BlockStager`` are not
-ported yet (ROADMAP queue A items 4 and 9).
+The pod learner's ``BlockStager`` is not ported yet (ROADMAP queue A item
+9).
 """
 
 from __future__ import annotations
@@ -250,6 +252,25 @@ def train_spec(holder: List[list]) -> Spec:
     }
 
 
+def rollout_spec(holder: List[dict]) -> Spec:
+    """Spec of ``collate_rollout``'s output (time-major [T, B] layout)."""
+    seg = holder[0]
+    b = len(holder)
+    t = len(seg["action"])
+    state = seg["state"]  # SegStates or a [T, ...] ndarray: both have .shape
+    boot = seg["bootstrap_state"]
+    return {
+        "state": ((t, b, *tuple(state.shape)[1:]),
+                  np.dtype(getattr(state, "dtype", np.uint8))),
+        "action": ((t, b), np.dtype(np.int32)),
+        "reward": ((t, b), np.dtype(np.float32)),
+        "done": ((t, b), np.dtype(np.float32)),
+        "behavior_log_probs": ((t, b), np.dtype(np.float32)),
+        "bootstrap_state": ((b, *np.shape(boot)),
+                            np.dtype(getattr(boot, "dtype", np.uint8))),
+    }
+
+
 def _write_states(dest: np.ndarray, src) -> None:
     """One obs write: lazy sources interleave straight into ``dest``."""
     mi = getattr(src, "materialize_into", None)
@@ -271,9 +292,24 @@ def collate_train_into(holder: List[list], out: Dict[str, np.ndarray]) -> None:
         return_out[i] = dp[2]
 
 
+def collate_rollout_into(holder: List[dict], out: Dict[str, np.ndarray]) -> None:
+    """In-place :func:`~distributed_ba3c_tpu_torch.data.dataflow.collate_rollout`:
+    the same time-major [T, B] values, one obs pass: each segment's (lazy)
+    state column is written straight into its ``out["state"][:, i]``
+    stripe."""
+    state_out = out["state"]
+    boot_out = out["bootstrap_state"]
+    for i, seg in enumerate(holder):
+        _write_states(state_out[:, i], seg["state"])
+        _write_states(boot_out[i], seg["bootstrap_state"])
+        for k in ("action", "reward", "done", "behavior_log_probs"):
+            out[k][:, i] = seg[k]
+
+
 #: feed kind -> (spec, in-place collate)
 COLLATE_INTO: Dict[str, Tuple[Callable, Callable]] = {
     "train": (train_spec, collate_train_into),
+    "rollout": (rollout_spec, collate_rollout_into),
 }
 
 

@@ -23,10 +23,12 @@ so a test can hand the step the draws JAX made from its keys.
 restores the learner state and the epoch counter continues from its step
 (the anneal with it), ``<logdir>/hyper.txt`` overrides the learning rate
 and entropy beta each epoch, and every epoch ends in a checkpoint under
-``<logdir>/checkpoints`` (keep-best on the greedy eval). It leaves out what
-the JAX loop adds for multi-host runs (collective saves, the watchdog,
-``BA3C_PARAM_DIGEST``), overlap, int8, ``fleet_accum`` and the telemetry
-server (ROADMAP queue A).
+``<logdir>/checkpoints`` (keep-best on the greedy eval). ``--overlap``
+swaps the step for ``fused/overlap.py``'s actor/learner pair on two CUDA
+streams (a checkpoint holds the train state only; a resumed overlap run
+re-primes the block in flight). It leaves out what the JAX loop adds for
+multi-host runs (collective saves, the watchdog, ``BA3C_PARAM_DIGEST``),
+int8, ``fleet_accum`` and the telemetry server (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -142,10 +144,19 @@ def push_frame(stack, obs, done):
     return torch.cat([stack[..., 1:] * keep, obs[..., None]], dim=-1)
 
 
-def make_rollout_body(model: BA3CNet, cfg: BA3CConfig, env) -> Callable:
+def make_rollout_body(
+    model: BA3CNet, cfg: BA3CConfig, env, record_log_probs: bool = False
+) -> Callable:
     """One rollout step: ``body(carry) -> (carry, (stack, actions,
     r_learn, donef))`` with ``carry = (env_state, stack, draws, ep_ret,
-    ep_cnt, ep_sum)``. Call it without gradients."""
+    ep_cnt, ep_sum)``. Call it without gradients.
+
+    The ONE body of the fused step and the overlap actor
+    (``fused/overlap.py``): both consume the draws in the same order, which
+    is what makes a lag-0 overlap run with frozen params bit-exact with
+    the fused step. With ``record_log_probs`` the trajectory tuple also
+    carries the sampled action's ``log_softmax`` (the V-trace behaviour
+    term) and the value; without it the body is unchanged."""
 
     def rollout_body(carry):
         env_state, stack, draws, ep_ret, ep_cnt, ep_sum = carry
@@ -170,7 +181,14 @@ def make_rollout_body(model: BA3CNet, cfg: BA3CConfig, env) -> Callable:
             else reward
         )
         carry = (env_state, new_stack, draws, ep_ret, ep_cnt, ep_sum)
-        return carry, (stack, actions, r_learn, donef)
+        ys = (stack, actions, r_learn, donef)
+        if record_log_probs:
+            lp = torch.gather(
+                torch.log_softmax(out.logits, dim=-1), -1,
+                actions.long()[:, None],
+            )[:, 0]
+            ys = ys + (lp, out.value)
+        return carry, ys
 
     return rollout_body
 
@@ -355,11 +373,24 @@ def run_fused_training(args, cfg: BA3CConfig) -> int:
         mgr = CheckpointManager(args.load)
         state.train = restore_train_state(state.train, mgr)
         logger.info("resumed train state at step %d", state.train.step)
-    step = make_fused_step(
-        model, state.train.optimizer, cfg, env, rollout_len,
-        grad_chunk_samples=args.grad_chunk_samples,
-        steps_per_dispatch=args.steps_per_dispatch,
-    )
+    if args.overlap:
+        # the actor and the learner on two streams: rollout k+1 beside
+        # learner k, the one-update lag corrected by V-trace
+        from distributed_ba3c_tpu_torch.fused.overlap import make_overlap_step
+
+        step = make_overlap_step(
+            model, state.train.optimizer, cfg, env, rollout_len,
+            grad_chunk_samples=args.grad_chunk_samples,
+            steps_per_dispatch=args.steps_per_dispatch,
+            rollout_dtype=args.rollout_dtype,
+        )
+        state = step.put(state)
+    else:
+        step = make_fused_step(
+            model, state.train.optimizer, cfg, env, rollout_len,
+            grad_chunk_samples=args.grad_chunk_samples,
+            steps_per_dispatch=args.steps_per_dispatch,
+        )
     run_shape = {
         "steps_per_epoch": args.steps_per_epoch,
         "batch_size": cfg.batch_size,
@@ -393,8 +424,9 @@ def run_fused_training(args, cfg: BA3CConfig) -> int:
     logger.set_logger_dir(args.logdir)
     samples_per_iter = n_envs * rollout_len
     logger.info(
-        "fused training: %d envs x %d rollout = %d samples/iter on %s",
-        n_envs, rollout_len, samples_per_iter, _param_device(model),
+        "fused training%s: %d envs x %d rollout = %d samples/iter on %s",
+        " (overlap, lag 1)" if args.overlap else "", n_envs, rollout_len,
+        samples_per_iter, _param_device(model),
     )
 
     # runtime-scheduled hyperparams: anneal over epochs when *_final is set
@@ -492,6 +524,11 @@ def _fused_epoch_loop(
             )
         for k in ("loss", "policy_loss", "value_loss", "entropy", "grad_norm"):
             holder.add_stat(k, metrics[k])
+        for k in ("mean_rho", "value_lag_mae"):
+            # --overlap: how hard V-trace clips, and how far the value
+            # function moved across the lag
+            if k in metrics:
+                holder.add_stat(k, metrics[k])
         if telemetry.enabled():
             holder.add_stats({
                 f"tele/learner/{k}": v for k, v in tele.scalars().items()

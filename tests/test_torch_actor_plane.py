@@ -330,6 +330,7 @@ def test_spawned_simulator_child_imports_neither_torch_nor_jax(tmp_path, monkeyp
 def test_plane_modules_import_no_torch():
     code = ("import sys\n"
             "import distributed_ba3c_tpu_torch.actors.master, "
+            "distributed_ba3c_tpu_torch.actors.vtrace_master, "
             "distributed_ba3c_tpu_torch.envs.native, "
             "distributed_ba3c_tpu_torch.utils.shm, "
             "distributed_ba3c_tpu_torch.telemetry.wire\n"

@@ -55,16 +55,6 @@ def test_train_without_device_raises_without_a_card(tmp_path, monkeypatch):
     assert not (tmp_path / "stat.json").exists()
 
 
-@pytest.mark.parametrize("trainer", ["tpu_vtrace_ba3c"])
-def test_unported_trainers_exit_with_their_roadmap_item(trainer, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--task", "train", "--trainer", trainer, "--env", "jax:pong",
-                  "--device", "cpu"])
-    assert e.value.code == 2
-    item = {"tpu_vtrace_ba3c": 4}[trainer]
-    assert f"queue A item {item}" in capsys.readouterr().err
-
-
 #: tests/test_e2e_fake.py's flags
 E2E = ["--env", "fake", "--simulator_procs", "4", "--batch_size", "32",
        "--image_size", "16", "--fc_units", "16", "--steps_per_epoch", "80",
@@ -127,6 +117,9 @@ def test_parser_keeps_the_jax_flag_defaults():
 
     port = vars(cli.make_parser().parse_args([]))
     ref = vars(jax_parser().parse_args([]))
+    # every trainer of the JAX CLI is one of the port's
+    trainers = next(a for a in jax_parser()._actions if a.dest == "trainer").choices
+    assert sorted(cli.TRAINERS) == sorted(trainers)
     for k in ("steps_per_epoch", "max_epoch", "rollout_len", "grad_chunk_samples",
               "steps_per_dispatch", "batch_size", "learning_rate",
               "learning_rate_final", "entropy_beta", "entropy_beta_final",
@@ -136,5 +129,5 @@ def test_parser_keeps_the_jax_flag_defaults():
               "predict_batch_size", "predictor_threads", "frame_history", "wire",
               "wire_crc", "pipe_c2s", "pipe_s2c", "actor_timeout", "publish_every",
               "ingest_staging", "rollout_dtype", "num_actions", "image_size",
-              "fc_units", "gamma", "reward_clip"):
+              "fc_units", "gamma", "reward_clip", "overlap"):
         assert port[k] == ref[k], k
