@@ -34,8 +34,16 @@ forward over 150 states), 2 epochs and a ``--load`` epoch; and
 ``[overlap]``: ``--trainer tpu_fused_ba3c --overlap`` (the actor on its
 own CUDA stream beside the learner, lag 1, one learner forward over 2688
 states), 2 epochs and a ``--load`` epoch, lag 0 at learning rate 0
-bit-equal with the fused step, and ``probe_overlap``. The kernels' parity
-covers the V-trace and overlap learners' batches (150, 2688). An
+bit-equal with the fused step, and ``probe_overlap``; and ``[games]``:
+the seven other on-device games stepped on the card and on the CPU from
+the same draws (equal frames, rewards, dones and state), BASELINE config
+#5 (``--env jax:coinrun --batch_size 20480 --rollout_len 20 --gamma
+0.999``: 1024 envs, learner chunks of 4096) for 2 epochs, a ``--load``
+epoch and ``--task eval --load`` through host players, one fused epoch of
+each other game with its docs/RECIPES.md flags, and the sync trainer on
+16 ``jax:breakout`` host players whose children never initialize CUDA.
+The kernels' parity covers the V-trace and overlap learners' batches
+(150, 2688) and CoinRun's (1024, 4096). An
 ``[env]`` line first records which of pyzmq, msgpack, tensorboard and
 gymnasium the machine has (informational).
 Every phase must pass; any failure exits nonzero and prints no result.
@@ -138,11 +146,12 @@ def phase_build():
 KERNEL_SOURCES = ("conv_block", "conv_block_bwd")
 # B=1 and 3 catch ragged-edge and tail faults; 128 is the sync learner's
 # batch, 150 the V-trace learner's (25 segments x 5 + 25 bootstrap states),
-# 2688 the overlap learner's (128 envs x 20 + 128 bootstrap states)
-KERNEL_BATCHES = (1, 3, 128, 150, B, TRAIN_B, 2688)
-BWD_BATCHES = (1, 3, 128, 150, TRAIN_B, 2688)
+# 2688 the overlap learner's (128 envs x 20 + 128 bootstrap states), 1024
+# CoinRun's rollout forward and 4096 its learner chunk (BASELINE config #5)
+KERNEL_BATCHES = (1, 3, 128, 150, B, 1024, TRAIN_B, 2688, 4096)
+BWD_BATCHES = (1, 3, 128, 150, 1024, TRAIN_B, 2688, 4096)
 DZ_MISMATCH = 1e-3  # share of dz elements the route may route otherwise than cuDNN's z
-TIMED_BATCHES = (B, TRAIN_B)
+TIMED_BATCHES = (B, 1024, TRAIN_B, 4096)
 
 
 def needed_flops(s) -> int:
@@ -685,19 +694,27 @@ def phase_play(dev):
 def pong_train_states(dev, n_envs: int = TRAIN_ENVS, steps: int = TRAIN_T, seed: int = 0):
     """[n_envs * steps, 84, 84, 4] uint8 frame stacks of the port's device
     Pong stepped with seeded random actions: one learner chunk's states."""
+    from distributed_ba3c_tpu_torch.envs.jaxenv import pong
+
+    return game_train_states(pong, dev, n_envs, steps, seed)
+
+
+def game_train_states(env, dev, n_envs: int, steps: int, seed: int = 0):
+    """[n_envs * steps, 84, 84, 4] uint8 frame stacks of an on-device game
+    stepped with seeded random actions, after 8 warm-up steps."""
     import torch
 
-    from distributed_ba3c_tpu_torch.envs.jaxenv import pong
     from distributed_ba3c_tpu_torch.fused.loop import initial_stack, push_frame, device_draws
 
-    draws = device_draws(pong, seed, dev)
+    draws = device_draws(env, seed, dev)
     g = torch.Generator(device=dev).manual_seed(seed)
-    state = pong.reset(draws.reset_noise(n_envs, dev))
-    stack = initial_stack(pong, state, 4)
+    state = env.reset(draws.reset_noise(n_envs, dev))
+    stack = initial_stack(env, state, 4)
     out = []
     for _ in range(steps + 8):
-        a = torch.randint(0, 6, (n_envs,), generator=g, device=dev, dtype=torch.int32)
-        state, obs, _, done = pong.step(state, a, draws.env_noise(n_envs, dev))
+        a = torch.randint(0, env.num_actions, (n_envs,), generator=g, device=dev,
+                          dtype=torch.int32)
+        state, obs, _, done = env.step(state, a, draws.env_noise(n_envs, dev))
         stack = push_frame(stack, obs, done)
         out.append(stack)
     return torch.cat(out[-steps:])
@@ -706,9 +723,11 @@ def pong_train_states(dev, n_envs: int = TRAIN_ENVS, steps: int = TRAIN_T, seed:
 def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
     """The conv_block Function (kernel forward; backward the route, dgrad
     and wgrad kernels) per block at B = len(states) (2560, the fused
-    learner chunk; 128, the sync learner's batch), as the learner runs it under
-    ``block_rules=rules``, against the plain block under autograd on the
-    same inputs, with its time; with ``detail`` also the times of the plain
+    learner chunk; 128, the sync learner's batch; 4096, CoinRun's chunk),
+    as the learner runs it under ``block_rules=rules``, against the plain
+    block under autograd on the same inputs (within REL_TOL, or, where a
+    gradient leaves it, with :func:`phase_bwd_kernels`' rounding-flip rule),
+    with its time; with ``detail`` also the times of the plain
     block and of the library's F.conv2d + relu + F.max_pool2d under
     autograd, then each backward kernel alone against its plain version and
     one library call of the same function (aten.convolution_backward for
@@ -760,9 +779,30 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
         scales = [float(r.float().abs().max()) for r in ref]
         names = ["y"] + (["dx"] if x_grad else []) + ["dw", "db"]
         ok = all(e <= REL_TOL * max(sc, 1e-6) for e, sc in zip(errs, scales))
+        note = ""
+        if not ok:
+            # [bwd]'s rule: the route may gate a few elements otherwise than
+            # the plain block where the two f32 sums round z to either side
+            # of a relu or pool decision, which moves a whole cotangent. Then
+            # every such element must be a rounding flip, at most
+            # DZ_MISMATCH of dz, and each gradient the plain pieces on the
+            # kernel's own routing, within REL_TOL
+            dz, dbpart = conv_block_route(x, w, b, gy, s, plain)
+            dz_ref, _ = route_plain(x, w, b, gy, s, plain)
+            flips, explained = rounding_flips(x, w, b, s, dz, dz_ref, plain)
+            on_dz = ([dgrad_plain(dz, w, s)] if x_grad else []) + list(
+                wgrad_plain(x, dz, dbpart, s))
+            routed = [_rel(a, r) for a, r in zip(got[1:], on_dz)]
+            ok = (errs[0] <= REL_TOL * max(scales[0], 1e-6) and explained
+                  and flips <= DZ_MISMATCH * dz.numel() and all(r < REL_TOL for r in routed))
+            note = (f" ({flips} dz elements routed otherwise, "
+                    f"{'each a rounding flip' if explained else 'NOT at rounding'}; on the "
+                    f"kernel's dz: " + " ".join(f"{n} rel {r:.3e}" for n, r in zip(names[1:], routed))
+                    + ")")
+            del dz, dz_ref, dbpart, on_dz
         log(f"[vjp] block{i} ({plain.__name__} rules) B={nb}: "
             + " ".join(f"{n} max|d|={e:.4g} (max|ref| {sc:.4g})" for n, e, sc in zip(names, errs, scales))
-            + (" ok" if ok else " FAIL"))
+            + note + (" ok" if ok else " FAIL"))
         if not ok:
             raise AssertionError(f"conv_block VJP disagrees with its plain block on block{i}")
         # bf16 bytes: x, w, b and the cotangent read once; y, dw, db (and
@@ -863,9 +903,9 @@ def _rel_l2(got, ref):
             / max(float(ref[k].double().norm()), 1e-3 * total) for k in ref}
 
 
-def grads_kernels_vs_plain(dev, grads_of, what: str) -> dict:
+def grads_kernels_vs_plain(dev, grads_of, what: str, num_actions: int = 6) -> dict:
     """``grads_of(net) -> (gradients in parameter order, loss)`` through
-    BA3CNet(6) at full width with conv_backend="cuda" (the kernel forward
+    BA3CNet(num_actions) at full width with conv_backend="cuda" (the kernel forward
     and the backward kernels) and "torch" (the plain blocks under
     autograd), under the default block_rules ("xla", the trainer's): the
     per-parameter rel-L2 of the two, and each one's peak device memory
@@ -878,7 +918,7 @@ def grads_kernels_vs_plain(dev, grads_of, what: str) -> dict:
 
     grads, aux, peak, own = {}, {}, {}, {}
     for backend in ("cuda", "torch"):
-        net = BA3CNet(6, conv_backend=backend, device=dev,
+        net = BA3CNet(num_actions, conv_backend=backend, device=dev,
                       generator=torch.Generator().manual_seed(0))
         rules = net.block_rules  # the trainer's: every entry point's default
         torch.cuda.synchronize()
@@ -904,10 +944,11 @@ def grads_kernels_vs_plain(dev, grads_of, what: str) -> dict:
     return {"rel_l2": errs, "peak_bytes": peak, "call_peak_bytes": own}
 
 
-def phase_train_grads(dev, states):
-    """One learner chunk (B = len(states) Pong states: 2560, the fused
-    trainer's; 128, the sync trainer's) through the a3c loss's gradients,
-    kernels against plain blocks (:func:`grads_kernels_vs_plain`)."""
+def phase_train_grads(dev, states, num_actions: int = 6, tag: str = "[train]"):
+    """One learner chunk (B = len(states) game states: 2560 of Pong, the
+    fused trainer's; 128, the sync trainer's; 4096 of CoinRun, a chunk of
+    BASELINE config #5) through the a3c loss's gradients, kernels against
+    plain blocks (:func:`grads_kernels_vs_plain`)."""
     import torch
 
     from distributed_ba3c_tpu_torch.config import BA3CConfig
@@ -915,15 +956,15 @@ def phase_train_grads(dev, states):
 
     n = states.shape[0]
     g = torch.Generator(device=dev).manual_seed(2)
-    actions = torch.randint(0, 6, (n,), generator=g, device=dev)
+    actions = torch.randint(0, num_actions, (n,), generator=g, device=dev)
     returns = torch.randn((n,), generator=g, device=dev)
 
     def grads_of(net):
-        gs, loss = learner_grads(net, BA3CConfig(), states, actions, returns, 0.01,
-                                 grad_chunk_samples=n)
+        gs, loss = learner_grads(net, BA3CConfig(num_actions=num_actions), states, actions,
+                                 returns, 0.01, grad_chunk_samples=n)
         return gs, loss.total
 
-    return grads_kernels_vs_plain(dev, grads_of, f"[train] learner chunk B={n}")
+    return grads_kernels_vs_plain(dev, grads_of, f"{tag} learner chunk B={n}", num_actions)
 
 
 def phase_train_cli(dev):
@@ -955,14 +996,16 @@ def phase_train_cli(dev):
     return {"wall_s": wall, "updates": 10, "evals": 2, "eval_steps": 200, "epochs": stats}
 
 
-def phase_train_step(dev):
-    """The fused step at the trainer's shape through the API: launches per
-    update, a step at learning rate 0 leaves the params equal, a live step
-    moves them; and the update's parts timed with CUDA events."""
+def phase_train_step(dev, game: str = "pong", n_envs: int = TRAIN_ENVS, T: int = TRAIN_T,
+                     chunk: int = 4096, tag: str = "[train]"):
+    """The fused step at a trainer's shape (``n_envs`` envs of ``game`` x
+    ``T`` steps, learner chunks of ``chunk`` samples) through the API: launches
+    per update, a step at learning rate 0 leaves the params equal, a live
+    step moves them; and the update's parts timed with CUDA events."""
     import torch
 
     from distributed_ba3c_tpu_torch.config import BA3CConfig
-    from distributed_ba3c_tpu_torch.envs.jaxenv import pong
+    from distributed_ba3c_tpu_torch.envs import jaxenv
     from distributed_ba3c_tpu_torch.fused.loop import (
         push_frame,
         create_fused_state,
@@ -970,11 +1013,14 @@ def phase_train_step(dev):
     )
     from distributed_ba3c_tpu_torch.parallel.train_step import learner_grads
     from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
-    cfg = BA3CConfig(batch_size=TRAIN_B)
-    net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(0))
-    state = create_fused_state(0, net, cfg, pong, TRAIN_ENVS)
+
+    env = jaxenv.get_env(game)
+    samples = n_envs * T
+    cfg = BA3CConfig(batch_size=samples, num_actions=env.num_actions)
+    net = BA3CNet(env.num_actions, device=dev, generator=torch.Generator().manual_seed(0))
+    state = create_fused_state(0, net, cfg, env, n_envs)
     opt = state.train.optimizer
-    step = make_fused_step(net, opt, cfg, pong, TRAIN_T)
+    step = make_fused_step(net, opt, cfg, env, T, grad_chunk_samples=chunk)
     before = {k: v.clone() for k, v in net.state_dict().items()}
     before_launches = launch_counts()
     state, m = step(state, 0.01, 0.0)
@@ -985,33 +1031,33 @@ def phase_train_step(dev):
     torch.cuda.synchronize()
     moved = sum(not torch.equal(v, before[k]) for k, v in net.state_dict().items())
     finite = all(math.isfinite(float(v)) for v in m.values())
-    log(f"[train] step API: launches per update {per_update}; lr=0 leaves params equal: {same}; "
+    log(f"{tag} step API: launches per update {per_update}; lr=0 leaves params equal: {same}; "
         f"lr=1e-3 moved {moved}/{len(before)} tensors; metrics finite: {finite}")
     if not (same and moved > 0 and finite):
-        raise AssertionError("the fused step's update is wrong")
+        raise AssertionError(f"{tag} the fused step's update is wrong")
 
     # the parts of one update at its shapes
-    B = TRAIN_ENVS
+    B = n_envs
     stack = state.obs_stack
-    actions = torch.randint(0, 6, (B,), device=dev, dtype=torch.int32)
+    actions = torch.randint(0, env.num_actions, (B,), device=dev, dtype=torch.int32)
 
     def env_step():
-        st, obs, _, done = pong.step(state.env_state, actions, state.draws.env_noise(B, dev))
+        st, obs, _, done = env.step(state.env_state, actions, state.draws.env_noise(B, dev))
         return push_frame(stack, obs, done)
 
-    flat_states = torch.cat([stack] * TRAIN_T)
-    flat_actions = torch.randint(0, 6, (TRAIN_B,), device=dev)
-    flat_returns = torch.randn((TRAIN_B,), device=dev)
-    grads, _ = learner_grads(net, cfg, flat_states, flat_actions, flat_returns, 0.01)
+    flat_states = torch.cat([stack] * T)
+    flat_actions = torch.randint(0, env.num_actions, (samples,), device=dev)
+    flat_returns = torch.randn((samples,), device=dev)
+    grads, _ = learner_grads(net, cfg, flat_states, flat_actions, flat_returns, 0.01, chunk)
     opt.set_learning_rate(0.0)
     with torch.no_grad():
         fwd_ms = time_ms(lambda: net(stack), iters=10)
     parts = {
-        "rollout_forward_ms": TRAIN_T * fwd_ms,
+        "rollout_forward_ms": T * fwd_ms,
         "bootstrap_forward_ms": fwd_ms,
-        "env_step_ms": TRAIN_T * time_ms(env_step, iters=10),
+        "env_step_ms": T * time_ms(env_step, iters=10),
         "learner_fwd_bwd_ms": time_ms(
-            lambda: learner_grads(net, cfg, flat_states, flat_actions, flat_returns, 0.01),
+            lambda: learner_grads(net, cfg, flat_states, flat_actions, flat_returns, 0.01, chunk),
             iters=3, warmup=1),
         "optimizer_ms": time_ms(lambda: opt.step(grads), iters=10),
     }
@@ -1019,8 +1065,8 @@ def phase_train_step(dev):
     parts["update_ms"] = time_ms(lambda: step(state, 0.01, 0.0), iters=3, warmup=1)
     set_launch_counts(saved)
     parts["parts_sum_ms"] = sum(v for k, v in parts.items() if k not in ("update_ms",))
-    parts["env_steps_per_s"] = TRAIN_B / parts["update_ms"] * 1e3
-    log(f"[train] per update (B={B} envs x T={TRAIN_T}): " + ", ".join(
+    parts["env_steps_per_s"] = samples / parts["update_ms"] * 1e3
+    log(f"{tag} per update (B={B} envs x T={T}): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()))
     return {"launches_per_update": per_update, **parts}
 
@@ -1810,6 +1856,334 @@ def phase_overlap(dev, train_cli: dict, train_step: dict):
             "grad_rel_l2": grad["rel_l2"], "vjp_rows": vjp, "fwd_rows": fwd_rows[OV_B]}
 
 
+#: the games of the [games] phase: card against CPU, and a fused CLI epoch
+GAMES = ("breakout", "coinrun", "seaquest", "qbert", "space_invaders", "boxing", "assault")
+GAME_ENVS, GAME_STEPS = 64, 100  # card against CPU: envs, steps
+GAME_FLOAT_TOL = 1e-5            # float state, card against CPU
+CR_ENVS, CR_T = 1024, 20         # BASELINE config #5: 1024 envs x 20 steps an update
+CR_B, CR_CHUNK = CR_ENVS * CR_T, 4096  # 20480 samples an update, learner chunks of 4096
+CR_UPDATES = 3                   # updates an epoch of the CoinRun runs
+CR_EVAL_STEPS = 1000             # CoinRun's MAX_T: the greedy eval covers an episode
+GAME_EVAL_STEPS = 50             # the greedy eval of the other games' short epoch
+GAME_SYNC_SIMS, GAME_SYNC_STEPS = 16, 40  # the jax:breakout sync run: players, steps an epoch
+#: docs/RECIPES.md's flags of each game (the anneals left out: one epoch)
+RECIPE = {
+    "breakout": ["--reward_clip", "1.0", "--learning_rate", "4e-4", "--entropy_beta", "0.01"],
+    "seaquest": ["--reward_clip", "1.0", "--gamma", "0.999", "--learning_rate", "3e-4",
+                 "--entropy_beta", "0.02"],
+    "qbert": ["--reward_clip", "1.0", "--entropy_beta", "0.006"],
+    "coinrun": ["--gamma", "0.999", "--learning_rate", "4e-4", "--entropy_beta", "0.005"],
+    "space_invaders": ["--reward_clip", "1.0", "--entropy_beta", "0.01"],
+    "boxing": ["--entropy_beta", "0.01"],
+    "assault": ["--reward_clip", "1.0", "--entropy_beta", "0.01"],
+}
+
+
+def per_update(T: int, n_chunks: int) -> dict:
+    """Launches per fused update: 4 blocks x (T rollout forwards + 1
+    bootstrap + 1 a learner chunk); per learner chunk one backward of each
+    block: a route each, a dgrad for blocks 1-3, a wgrad each."""
+    return {"conv_block_fwd": 4 * (T + 1 + n_chunks), "conv_block_vjp": 4 * n_chunks,
+            "conv_block_route": 4 * n_chunks, "conv_block_dgrad": 3 * n_chunks,
+            "conv_block_wgrad": 4 * n_chunks}
+
+
+def _to(draws, dev):
+    """A game's draws (a tensor or a NamedTuple of them) on ``dev``."""
+    if isinstance(draws, tuple):
+        return type(draws)(*(t.to(dev) for t in draws))
+    return draws.to(dev)
+
+
+def games_card_vs_cpu(dev) -> dict:
+    """Each game stepped GAME_STEPS times at GAME_ENVS envs on the card and
+    on the CPU from the same draws and actions (made once on the CPU, then
+    copied): frames, rewards, dones and the discrete state equal at every
+    step, the float state within GAME_FLOAT_TOL. Returns each game's
+    result: the first step where the two part (none if they never do),
+    its episodes and summed reward."""
+    import torch
+
+    from distributed_ba3c_tpu_torch.envs import jaxenv
+
+    out = {}
+    for game in GAMES:
+        env = jaxenv.get_env(game)
+        g = torch.Generator().manual_seed(7)
+        draws = env.reset_noise(GAME_ENVS, g, "cpu")
+        cs, gs = env.reset(draws), env.reset(_to(draws, dev))
+        fork, episodes, reward = None, 0, 0.0
+        for t in range(-1, GAME_STEPS):
+            if t >= 0:
+                a = torch.randint(0, env.num_actions, (GAME_ENVS,), generator=g,
+                                  dtype=torch.int32)
+                draws = env.step_noise(GAME_ENVS, g, "cpu")
+                cs, cobs, cr, cd = env.step(cs, a, draws)
+                gs, gobs, gr, gd = env.step(gs, a.to(dev), _to(draws, dev))
+                episodes += int(cd.sum())
+                reward += float(cr.sum())
+                parts = {"frames": torch.equal(cobs, gobs.cpu()),
+                         "rewards": torch.equal(cr, gr.cpu()), "dones": torch.equal(cd, gd.cpu())}
+            else:
+                parts = {"frames": torch.equal(env.render(cs), env.render(gs).cpu())}
+            for f in env.State._fields:
+                a_, b_ = getattr(cs, f), getattr(gs, f).cpu()
+                parts[f] = (a_.dtype == b_.dtype and (
+                    bool(((a_ - b_).abs() <= GAME_FLOAT_TOL).all()) if a_.is_floating_point()
+                    else torch.equal(a_, b_)))
+            bad = [k for k, ok in parts.items() if not ok]
+            if bad:
+                fork = {"step": t, "fields": bad}
+                break
+        out[game] = {"fork": fork, "episodes": episodes, "reward": reward}
+        log(f"[games] {game}: card against CPU, {GAME_ENVS} envs x {GAME_STEPS} steps from "
+            f"the same draws: " + (f"PARTED at step {fork['step']} in {fork['fields']}"
+                                   if fork else "frames, rewards, dones and state equal")
+            + f" ({episodes} episodes ended, reward {reward:g})")
+    return out
+
+
+def _cli_run(argv, dev, tag):
+    """One CLI run through ``main`` with the launch counts zeroed first:
+    (wall seconds, launches)."""
+    from distributed_ba3c_tpu_torch.cli import main as cli_main
+
+    set_launch_counts({k: 0 for k in COUNTED})
+    t0 = time.perf_counter()
+    rc = cli_main([*argv, "--device", str(dev)])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{tag} {argv} returned {rc}")
+    return wall, launch_counts()
+
+
+def _check_epochs(stats, tag, keys=("loss", "policy_loss", "value_loss", "entropy", "grad_norm")):
+    for rec in stats:
+        for k in keys:
+            if not math.isfinite(rec[k]):
+                raise AssertionError(f"{tag} epoch {rec['epoch']}: {k} = {rec[k]}")
+
+
+def _probed_jax_player(idx, name, frame_history, report_dir):
+    """``build_jax_player`` wrapped so that the process stepping it writes
+    ``torch.cuda.is_initialized()`` to ``report_dir`` at its first action
+    and every 500th: the [games] sync run reads them from each child."""
+    import multiprocessing
+
+    import torch
+
+    from distributed_ba3c_tpu_torch.envs.base import ProxyPlayer
+    from distributed_ba3c_tpu_torch.envs.jaxenv.host_adapter import build_jax_player
+
+    class Probe(ProxyPlayer):
+        steps = 0
+
+        def action(self, act):
+            out = self.player.action(act)
+            self.steps += 1
+            if self.steps == 1 or self.steps % 500 == 0:
+                path = os.path.join(report_dir, f"{os.getpid()}-{idx}.json")
+                with open(path + ".tmp", "w") as f:
+                    json.dump({"pid": os.getpid(), "idx": idx, "steps": self.steps,
+                               "child": multiprocessing.parent_process() is not None,
+                               "cuda_initialized": torch.cuda.is_initialized()}, f)
+                os.replace(path + ".tmp", path)
+            return out
+
+    return Probe(build_jax_player(idx, name, frame_history))
+
+
+def games_sync_run(dev) -> dict:
+    """``--trainer tpu_sync_ba3c --env jax:breakout`` at full width with
+    GAME_SYNC_SIMS host players (simulator children, each stepping one
+    Breakout on CPU tensors) for 2 epochs of GAME_SYNC_STEPS learner steps
+    (the first holds the children's start, the second is steady): the
+    [sync] run's invariants, its samples/s and served p99, and a report
+    from every child that it never initialized CUDA."""
+    import functools
+    import tempfile
+
+    from distributed_ba3c_tpu_torch import cli
+
+    tag = "[games] jax:breakout sync"
+    real = cli._build_player_factory
+    with tempfile.TemporaryDirectory() as logdir, tempfile.TemporaryDirectory() as reports:
+        def probed(args, cfg):
+            if not args.env.startswith("jax:"):
+                return real(args, cfg)
+            return functools.partial(_probed_jax_player, name=args.env.split(":", 1)[1],
+                                     frame_history=cfg.frame_history, report_dir=reports)
+
+        cli._build_player_factory = probed
+        try:
+            run = _sync_run(["--task", "train", "--trainer", "tpu_sync_ba3c",
+                             "--env", "jax:breakout", "--simulator_procs", str(GAME_SYNC_SIMS),
+                             "--batch_size", str(SYNC_B), "--steps_per_epoch",
+                             str(GAME_SYNC_STEPS), "--max_epoch", "2", "--nr_eval", "0",
+                             "--logdir", logdir], dev, tag)
+        finally:
+            cli._build_player_factory = real
+        with open(os.path.join(logdir, "stat.json")) as f:
+            stats = json.load(f)
+        child = []
+        for name in os.listdir(reports):
+            if name.endswith(".json"):
+                with open(os.path.join(reports, name)) as f:
+                    child.append(json.load(f))
+    _check_epochs(stats, tag, ("loss", "entropy", "grad_norm"))
+    _sync_checks(run, 2 * GAME_SYNC_STEPS, exact_serving=False, tag=tag,
+                 samples_per_step=SYNC_B)
+    if run["master"].get("per_env_msgs_total", 0) <= 0:
+        raise AssertionError(f"{tag}: no per-env message reached the master")
+    children = {r["pid"] for r in child if r["child"]}
+    cuda = [r for r in child if r["cuda_initialized"]]
+    log(f"{tag}: {len(children)} simulator children reported (pids {sorted(children)}); "
+        f"CUDA initialized in {len(cuda)} of them")
+    if len(children) != GAME_SYNC_SIMS or any(not r["child"] for r in child):
+        raise AssertionError(f"{tag}: reports from {len(children)} children, expected "
+                             f"{GAME_SYNC_SIMS}: {child}")
+    if cuda:
+        raise AssertionError(f"{tag}: a simulator child initialized CUDA: {cuda}")
+    numbers = _sync_numbers(run, 2 * GAME_SYNC_STEPS)
+    numbers["fps"] = [r["fps"] for r in stats]
+    log(f"{tag}: " + ", ".join(
+        f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in numbers.items()))
+    return {"launches": run["launches"], "numbers": numbers,
+            "children": len(children), "children_with_cuda": len(cuda)}
+
+
+def phase_games(dev) -> dict:
+    """The on-device game set. (1) Card against CPU: every game of GAMES
+    (:func:`games_card_vs_cpu`). (2) BASELINE config #5 through the CLI:
+    ``--trainer tpu_fused_ba3c --env jax:coinrun --batch_size 20480
+    --rollout_len 20 --gamma 0.999`` at full width, 2 epochs of CR_UPDATES
+    updates with a 1000-step greedy eval of 8 envs each, a ``--load``
+    epoch, and ``--task eval --load`` through host players; launches per
+    update counted (4 x (20 + 1 + 5) forwards, 20 route, 15 dgrad, 20
+    wgrad), and the same through the step API with the update's parts
+    timed; a learner chunk's gradients at B=4096 of CoinRun states, kernels
+    against plain blocks, with its peak memory; the four blocks' forward
+    and backward timed at B=4096 beside the plain and library versions.
+    (3) The six other games: one fused CLI epoch of 2 updates each at 128
+    envs x 20 with docs/RECIPES.md's flags: exact launches, finite loss.
+    (4) The sync trainer on ``jax:breakout`` host players
+    (:func:`games_sync_run`)."""
+    import tempfile
+
+    import torch
+
+    from distributed_ba3c_tpu_torch.parallel.train_step import n_grad_chunks
+
+    tag = "[games]"
+    t0 = time.perf_counter()
+    launches = {}
+    card_cpu = games_card_vs_cpu(dev)
+    forks = {g: r["fork"] for g, r in card_cpu.items() if r["fork"]}
+    if forks:
+        raise AssertionError(f"{tag} card and CPU parted: {forks}")
+
+    # (2) BASELINE config #5
+    cr_chunks = n_grad_chunks(CR_B, CR_CHUNK)
+    cr_update = per_update(CR_T, cr_chunks)
+    cr = ["--task", "train", "--trainer", "tpu_fused_ba3c", "--env", "jax:coinrun",
+          "--batch_size", str(CR_B), "--rollout_len", str(CR_T), *RECIPE["coinrun"],
+          "--grad_chunk_samples", str(CR_CHUNK),
+          "--steps_per_epoch", str(CR_UPDATES), "--nr_eval", "8",
+          "--eval_max_steps", str(CR_EVAL_STEPS)]
+    runs = {}
+    with tempfile.TemporaryDirectory() as logdir:
+        ckdir = os.path.join(logdir, "checkpoints")
+        for name, extra, updates in (("train", ["--max_epoch", "2"], 2 * CR_UPDATES),
+                                     ("resumed", ["--max_epoch", "3", "--load", ckdir],
+                                      CR_UPDATES)):
+            wall, got = _cli_run([*cr, *extra, "--logdir", logdir], dev, f"{tag} coinrun {name}")
+            evals = updates // CR_UPDATES
+            want = {k: updates * n for k, n in cr_update.items()}
+            want["conv_block_fwd"] += evals * CR_EVAL_STEPS * 4
+            runs[name] = {"wall_s": wall, "launches": got}
+            launches[f"coinrun_{name}"] = got
+            log(f"{tag} coinrun {name}: {wall:.2f} s, launches {got} (expected {want}: "
+                f"per update {cr_update}, {CR_EVAL_STEPS * 4} forwards a greedy eval)")
+            if got != want:
+                raise AssertionError(f"{tag} coinrun {name} launches {got}, expected {want}")
+        with open(os.path.join(logdir, "stat.json")) as f:
+            stats = json.load(f)
+        if [int(r["global_step"]) for r in stats] != [CR_UPDATES * e for e in (1, 2, 3)]:
+            raise AssertionError(f"{tag} coinrun --load did not continue: {stats}")
+        _check_epochs(stats, f"{tag} coinrun")
+        wall, got = _cli_run(["--task", "eval", "--env", "jax:coinrun", "--nr_eval", "4",
+                              "--max_steps", "300", "--load", ckdir], dev,
+                             f"{tag} coinrun eval --load")
+        launches["coinrun_eval"] = got
+        if got["conv_block_fwd"] == 0:
+            raise AssertionError(f"{tag} coinrun --task eval --load never launched the forward")
+    cr_numbers = {
+        "fps": [r["fps"] for r in stats],
+        "eval_mean_score": [r.get("eval_mean_score") for r in stats],
+        "mean_score": [r.get("mean_score") for r in stats],
+        "loss": [r["loss"] for r in stats],
+        "wall_s": {k: v["wall_s"] for k, v in runs.items()},
+        "eval_load_wall_s": wall,
+    }
+    log(f"{tag} coinrun cli: stat.json env-steps/s {cr_numbers['fps']}; eval_mean_score "
+        f"{cr_numbers['eval_mean_score']}; loss {cr_numbers['loss']}")
+    saved = launch_counts()
+    cr_step = phase_train_step(dev, "coinrun", CR_ENVS, CR_T, CR_CHUNK, tag=f"{tag} coinrun")
+    if cr_step["launches_per_update"] != cr_update:
+        raise AssertionError(f"{tag} coinrun launches per update {cr_step['launches_per_update']}")
+    from distributed_ba3c_tpu_torch.envs import jaxenv
+
+    coinrun = jaxenv.get_env("coinrun")
+    states = game_train_states(coinrun, dev, CR_ENVS, CR_CHUNK // CR_ENVS, seed=3)
+    grad = phase_train_grads(dev, states, coinrun.num_actions, tag=f"{tag} coinrun")
+    vjp = phase_vjp(dev, states, detail=True)
+    set_launch_counts(saved)
+    del states
+    cr_numbers["learner_peak_gib"] = grad["peak_bytes"]["cuda"] / 2**30
+    cr_numbers["learner_call_peak_gib"] = grad["call_peak_bytes"]["cuda"] / 2**30
+    cr_numbers["plain_learner_peak_gib"] = grad["peak_bytes"]["torch"] / 2**30
+    log(f"{tag} coinrun learner chunk B={CR_CHUNK}: peak memory "
+        f"{cr_numbers['learner_peak_gib']:.3f} GiB ({cr_numbers['learner_call_peak_gib']:.3f} "
+        f"above the call's start; plain blocks {cr_numbers['plain_learner_peak_gib']:.3f}); "
+        f"four blocks fwd+bwd {sum(r['ms'] for r in vjp):.3f} ms (plain "
+        f"{sum(r['plain_ms'] for r in vjp):.3f}, library {sum(r['library_ms'] for r in vjp):.3f})")
+
+    # (3) the six other games, one short fused epoch each
+    others = {}
+    for game in GAMES:
+        if game == "coinrun":
+            continue
+        with tempfile.TemporaryDirectory() as logdir:
+            wall, got = _cli_run(
+                ["--task", "train", "--trainer", "tpu_fused_ba3c", "--env", f"jax:{game}",
+                 "--batch_size", str(TRAIN_B), "--rollout_len", str(TRAIN_T), *RECIPE[game],
+                 "--steps_per_epoch", "2", "--max_epoch", "1", "--nr_eval", "4",
+                 "--eval_max_steps", str(GAME_EVAL_STEPS), "--logdir", logdir],
+                dev, f"{tag} {game}")
+            with open(os.path.join(logdir, "stat.json")) as f:
+                rec = json.load(f)[-1]
+        want = {k: 2 * n for k, n in PER_UPDATE.items()}
+        want["conv_block_fwd"] += GAME_EVAL_STEPS * 4
+        _check_epochs([rec], f"{tag} {game}")
+        others[game] = {"wall_s": wall, "fps": rec["fps"], "loss": rec["loss"],
+                        "entropy": rec["entropy"]}
+        launches[game] = got
+        log(f"{tag} {game} fused epoch: {wall:.2f} s, env-steps/s {rec['fps']:.1f}, loss "
+            f"{rec['loss']:.5f}, entropy {rec['entropy']:.4f}, launches {got}")
+        if got != want:
+            raise AssertionError(f"{tag} {game} launches {got}, expected {want}")
+
+    # (4) host players on the ZMQ plane
+    sync = games_sync_run(dev)
+    launches["breakout_sync"] = sync["launches"]
+    wall = time.perf_counter() - t0
+    log(f"{tag} phase {wall:.2f} s")
+    return {"wall_s": wall, "card_vs_cpu": card_cpu, "coinrun": cr_numbers,
+            "coinrun_step": cr_step, "coinrun_grad_rel_l2": grad["rel_l2"], "vjp_rows": vjp,
+            "others": others, "sync": sync["numbers"], "sync_children": sync["children"],
+            "launches": launches}
+
+
 #: the launch counts the paths are read by: each kernel wrapper's, and
 #: conv_block's backward passes on the card (conv_block_vjp)
 COUNTED = ("conv_block_fwd", "conv_block_vjp", "conv_block_route", "conv_block_dgrad",
@@ -1833,11 +2207,8 @@ def set_launch_counts(counts: dict) -> None:
         f.launches = counts[k]
 
 
-#: launches per training update: 4 blocks x (T rollout forwards + 1
-#: bootstrap + 1 learner chunk); per learner chunk one backward of each
-#: block: a route each, a dgrad for blocks 1-3, a wgrad each
-PER_UPDATE = {"conv_block_fwd": 4 * (TRAIN_T + 2), "conv_block_vjp": 4,
-              "conv_block_route": 4, "conv_block_dgrad": 3, "conv_block_wgrad": 4}
+#: launches per training update at 128 envs x 20 (one learner chunk)
+PER_UPDATE = per_update(TRAIN_T, 1)
 
 
 def main(argv=None) -> int:
@@ -1972,7 +2343,10 @@ def main(argv=None) -> int:
     vtrace_launches = {k: sum(v[k] for v in vtrace["launches"].values()) for k in COUNTED}
     overlap = phase_overlap(dev, train, step)
     overlap_launches = {k: sum(v[k] for v in overlap["launches"].values()) for k in COUNTED}
-    for name, got in (("vtrace", vtrace_launches), ("overlap", overlap_launches)):
+    games = phase_games(dev)
+    games_launches = {k: sum(v[k] for v in games["launches"].values()) for k in COUNTED}
+    for name, got in (("vtrace", vtrace_launches), ("overlap", overlap_launches),
+                      ("games", games_launches)):
         if not all(got.values()):
             raise AssertionError(f"[{name}] a kernel of the path never launched: {got}")
 
@@ -1981,16 +2355,19 @@ def main(argv=None) -> int:
                    "train": train_launches["conv_block_fwd"], "resume": resume_fwd,
                    "sync": sync_launches["conv_block_fwd"],
                    "vtrace": vtrace_launches["conv_block_fwd"],
-                   "overlap": overlap_launches["conv_block_fwd"]}
+                   "overlap": overlap_launches["conv_block_fwd"],
+                   "games": games_launches["conv_block_fwd"]}
     bwd_by_path = {k: {"train": train_launches[k], "resume": resume["launches"]["train"][k],
                        "sync": sync_launches[k], "vtrace": vtrace_launches[k],
-                       "overlap": overlap_launches[k]}
+                       "overlap": overlap_launches[k], "games": games_launches[k]}
                    for k in COUNTED if k != "conv_block_fwd"}
     fwd_ms_at = {nb: {k: sum(r[k] for r in rs if r["block"] != "block0_uint8")
                       for k in ("ms", "plain_ms", "library_ms")}
-                 for nb, rs in ((150, vtrace["fwd_rows"]), (2688, overlap["fwd_rows"]))}
+                 for nb, rs in ((150, vtrace["fwd_rows"]), (1024, rows_by_b[1024]),
+                                (2688, overlap["fwd_rows"]), (4096, rows_by_b[4096]))}
     vjp_ms_at = {nb: {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms")}
-                 for nb, rows in ((150, vtrace["vjp_rows"]), (2688, overlap["vjp_rows"]))}
+                 for nb, rows in ((150, vtrace["vjp_rows"]), (2688, overlap["vjp_rows"]),
+                                  (4096, games["vjp_rows"]))}
     bwd_src = "distributed_ba3c_tpu_torch/csrc/conv_block_bwd.cu"
     kernels = [{
         "name": "conv_block_fwd",
@@ -2034,6 +2411,7 @@ def main(argv=None) -> int:
         "ms_by_batch": vjp_ms_at,
         "per_block_b150": vtrace["vjp_rows"],
         "per_block_b2688": overlap["vjp_rows"],
+        "per_block_b4096": games["vjp_rows"],
         "parity_batches": list(BWD_BATCHES),
     }]
     for name in ("route", "dgrad", "wgrad"):
@@ -2061,6 +2439,7 @@ def main(argv=None) -> int:
                     "vtrace": {k: v for k, v in vtrace.items() if k not in ("vjp_rows", "fwd_rows")},
                     "overlap": {k: v for k, v in overlap.items()
                                 if k not in ("vjp_rows", "fwd_rows")},
+                    "games": {k: v for k, v in games.items() if k != "vjp_rows"},
                     "packages": probe}))
     log(card)
     log(json.dumps({"kernels": kernels}))

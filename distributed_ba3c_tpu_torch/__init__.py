@@ -11,13 +11,18 @@ Ported so far: the serving path -- ``BA3CNet`` (models/a3c.py) through the
 fused conv-block kernel (ops/conv_block.py), ``BatchedPredictor``
 (predict/server.py), and ``python -m distributed_ba3c_tpu_torch --task
 play|eval`` (cli.py); and the training path -- the fused trainer
-(fused/loop.py, ``--task train --trainer tpu_fused_ba3c --env jax:pong``)
-on device Pong (envs/jaxenv/), with the conv block's custom VJP
+(fused/loop.py, ``--task train --trainer tpu_fused_ba3c --env
+jax:<game>``) on the on-device game set (envs/jaxenv/: pong, breakout,
+seaquest, qbert, coinrun, space_invaders, boxing, assault), with the conv
+block's custom VJP
 (``ops/conv_block.py::conv_block``), the loss, returns and optimizer
 (ops/); and the sync trainer with its ZMQ actor plane (``--task train
 --trainer tpu_sync_ba3c``, the default): env-server processes
 (envs/native.py, actors/simulator.py), the n-step master
 (actors/master.py), the train feed and pinned staging (data/), the
 learner step (parallel/train_step.py) and the trainer with its callbacks
-(train/).
+(train/); the V-trace learner (parallel/vtrace_step.py, ``--trainer
+tpu_vtrace_ba3c``, and the fused trainer's ``--overlap``); and the games
+as host players of the plane and of eval/play
+(envs/jaxenv/host_adapter.py).
 """

@@ -22,12 +22,20 @@ raises). eval and play serve the policy through :class:`BatchedPredictor`
 ``--load <logdir>/checkpoints``, or of a seeded init (``--seed``) without
 it. ``--task train --load`` resumes a run from its checkpoints.
 
-The sync and V-trace trainers run one local fleet (``fake`` simulators or
-``cpp:`` env servers) started with the trainer, as Tensorpack did; the JAX
+The sync and V-trace trainers run one local fleet (``fake`` or ``jax:``
+simulators, or ``cpp:`` env servers) started with the trainer, as
+Tensorpack did; a ``jax:<game>`` simulator steps one env of the on-device
+game on CPU tensors (``envs/jaxenv/host_adapter.py``), and so do eval and
+play. The fused trainer runs the same games batched on the card. The JAX
 CLI's fleet supervision and autoscaling, ``--fleets``, ``--fleet_accum``,
-remote fleets (``--env zmq:``), ``gym:``/``jax:`` players, the serving
-plane's replicas, canary and shadow policies, int8 and the tracing plane
-are not ported yet (ROADMAP queue A).
+remote fleets (``--env zmq:``), ``gym:`` players, the serving plane's
+replicas, canary and shadow policies, int8 and the tracing plane are not
+ported yet (ROADMAP queue A)::
+
+    python -m distributed_ba3c_tpu_torch --trainer tpu_fused_ba3c --env jax:coinrun
+        --batch_size 20480 --rollout_len 20 --gamma 0.999 --eval_max_steps 2000
+    python -m distributed_ba3c_tpu_torch --env jax:breakout --simulator_procs 16
+    python -m distributed_ba3c_tpu_torch --task eval --env jax:coinrun --load <logdir>/checkpoints
 """
 
 from __future__ import annotations
@@ -58,8 +66,10 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--env", default="fake",
         help="fake (the chain MDP), cpp:<game> (the native core, e.g. "
-        "cpp:pong; build it with `make -C cpp`) or jax:pong (the on-device "
-        "env of the fused trainer)",
+        "cpp:pong; build it with `make -C cpp`) or jax:<game> (an on-device "
+        "game: pong, breakout, seaquest, qbert, coinrun, space_invaders, "
+        "boxing, assault; batched on the card by the fused trainer, one env "
+        "on the CPU a simulator or eval/play player)",
     )
     p.add_argument(
         "--nr_eval", type=int, default=None,
@@ -204,6 +214,16 @@ def _build_player_factory(args, cfg: BA3CConfig):
             frame_history=cfg.frame_history,
             num_actions=cfg.num_actions,
         )
+    if args.env.startswith("jax:"):
+        from distributed_ba3c_tpu_torch.envs.jaxenv.host_adapter import (
+            build_jax_player,
+        )
+
+        return functools.partial(
+            build_jax_player,
+            name=args.env.split(":", 1)[1],
+            frame_history=cfg.frame_history,
+        )
     if args.env.startswith("cpp:"):
         from distributed_ba3c_tpu_torch.envs import native
 
@@ -212,7 +232,7 @@ def _build_player_factory(args, cfg: BA3CConfig):
             name=args.env.split(":", 1)[1],
             frame_history=cfg.frame_history,
         )
-    raise SystemExit(f"unknown --env {args.env!r} (fake or cpp:<game>)")
+    raise SystemExit(f"unknown --env {args.env!r} (fake, jax:<game> or cpp:<game>)")
 
 
 def _sync_fleet(args, cfg: BA3CConfig, c2s: str, s2c: str, master) -> list:
@@ -319,10 +339,11 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
     from distributed_ba3c_tpu_torch.utils import logger
     from distributed_ba3c_tpu_torch.utils.device import resolve_device
 
-    if args.env.startswith(("jax:", "gym:", "zmq:")):
+    if args.env.startswith(("gym:", "zmq:")):
         raise SystemExit(
             f"--trainer {args.trainer} --env {args.env}: not ported yet (the "
-            "port's ZMQ trainers run fake or cpp:<game>; see ROADMAP)"
+            "port's ZMQ trainers run fake, jax:<game> or cpp:<game>; gym: "
+            "and zmq: players are ROADMAP queue A item 3b)"
         )
     vtrace = args.trainer == "tpu_vtrace_ba3c"
     device = resolve_device(args.device)

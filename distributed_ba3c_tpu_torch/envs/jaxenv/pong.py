@@ -13,9 +13,11 @@ Every random draw is an input. A serve takes an ``angle ~ U(-0.7, 0.7)``
 and a ``jitter ~ U(-0.1, 0.1)``: :func:`step` takes ``noise [B,
 FRAME_SKIP + 1, 2]``, one (angle, jitter) pair for each substep's serve
 and one for the reset, and :func:`reset` takes ``noise [B, 2]``.
-:func:`sample_noise` draws them from a ``torch.Generator``; a test feeds
-the draws JAX made from its keys instead. Everything is branch-free
-tensor arithmetic (``torch.where`` masks).
+:func:`step_noise` and :func:`reset_noise` (the draw protocol of
+``envs/jaxenv/__init__.py``) draw them from a ``torch.Generator`` through
+:func:`sample_noise`; a test feeds the draws JAX made from its keys
+instead. Everything is branch-free tensor arithmetic (``torch.where``
+masks).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from distributed_ba3c_tpu_torch.envs.jaxenv._common import auto_reset, inv32, pixel_grid
 
 num_actions = 6
 obs_shape = (84, 84)
@@ -42,17 +46,7 @@ FRAME_SKIP = 4
 #: (low, high) of a serve's two uniform draws: angle, then jitter
 NOISE_RANGES = ((-0.7, 0.7), (-0.1, 0.1))
 
-
-
-def _inv32(d: float) -> float:
-    """1 / d computed in float32. XLA compiles a division by a constant as
-    a product with its float32 reciprocal (and so does PyTorch on CUDA);
-    multiplying by it makes the CPU, the card and the JAX reference round
-    alike."""
-    return float(torch.tensor(1.0) / torch.tensor(d, dtype=torch.float32))
-
-
-_INV_HALF_PADDLE = _inv32(PADDLE_H / 2)
+_INV_HALF_PADDLE = inv32(PADDLE_H / 2)
 
 
 class State(NamedTuple):
@@ -74,6 +68,16 @@ def sample_noise(
     lo = torch.tensor([r[0] for r in NOISE_RANGES], device=device)
     hi = torch.tensor([r[1] for r in NOISE_RANGES], device=device)
     return lo + u * (hi - lo)
+
+
+def step_noise(n: int, generator: torch.Generator, device) -> torch.Tensor:
+    """The draws of one :func:`step` of ``n`` envs: ``[n, FRAME_SKIP + 1, 2]``."""
+    return sample_noise(n, FRAME_SKIP + 1, generator, device)
+
+
+def reset_noise(n: int, generator: torch.Generator, device) -> torch.Tensor:
+    """The draws of one :func:`reset` of ``n`` envs: ``[n, 2]``."""
+    return sample_noise(n, 1, generator, device)[:, 0]
 
 
 def _serve(noise: torch.Tensor, towards_agent: torch.Tensor):
@@ -191,23 +195,13 @@ def step(
     state = state._replace(t=state.t + 1)
 
     done = (state.agent_score >= WIN_SCORE) | (state.opp_score >= WIN_SCORE)
-    fresh = reset(noise[:, FRAME_SKIP])
-    state = State(*(
-        torch.where(done.view(-1, *([1] * (new.dim() - 1))), new, old)
-        for new, old in zip(fresh, state)
-    ))
+    state = auto_reset(done, reset(noise[:, FRAME_SKIP]), state)
     return state, render(state), reward, done
 
 
 def render(state: State) -> torch.Tensor:
     """Rasterize to uint8 [B, 84, 84] (rows = y, cols = x), by masks."""
-    h, w = obs_shape
-    dev = state.agent_y.device
-    # pixel centres: XLA folds "/ h" into a product with 1/h in float32
-    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) * _inv32(h)
-    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) * _inv32(w)
-    Y = ys[None, :, None]
-    X = xs[None, None, :]
+    Y, X = pixel_grid(obs_shape, state.agent_y.device)
 
     def rect(cx, cy, half_w, half_h):
         if isinstance(cx, torch.Tensor):

@@ -5,7 +5,7 @@ Port of ``distributed_ba3c_tpu/fused/loop.py``. One step, as there:
     T rollout steps (a Python loop for the lax.scan), without gradients:
         forward the policy on the frame stacks (the conv-block kernel)
         sample actions: argmax(logits + Gumbel noise)
-        env.step: physics + uint8 render for B envs (envs/jaxenv/pong.py)
+        env.step: physics + uint8 render for B envs (envs/jaxenv/)
         update frame stacks and episode-return accumulators
     bootstrap value on the final stacks
     n-step returns (reverse loop, done-masked)       ops/returns.py
@@ -62,7 +62,9 @@ class GeneratorDraws:
     The counterpart of the JAX step's key. A draw source has three
     methods, called in this order by each rollout step: ``action_noise``
     (Gumbel noise for the actions) and ``env_noise`` (the env's step
-    draws); ``reset_noise`` serves fresh envs.
+    draws, ``env.step_noise``); ``reset_noise`` (``env.reset_noise``)
+    serves fresh envs. The env's draws are opaque here: a tensor or a
+    ``NamedTuple`` of tensors that only the env's ``step``/``reset`` read.
     """
 
     def __init__(self, env, generator: torch.Generator):
@@ -74,13 +76,11 @@ class GeneratorDraws:
         u = torch.rand(shape, generator=self.generator, device=device)
         return -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
 
-    def env_noise(self, n: int, device) -> torch.Tensor:
-        return self.env.sample_noise(
-            n, self.env.FRAME_SKIP + 1, self.generator, device
-        )
+    def env_noise(self, n: int, device):
+        return self.env.step_noise(n, self.generator, device)
 
-    def reset_noise(self, n: int, device) -> torch.Tensor:
-        return self.env.sample_noise(n, 1, self.generator, device)[:, 0]
+    def reset_noise(self, n: int, device):
+        return self.env.reset_noise(n, self.generator, device)
 
 
 def device_draws(env, seed: int, device) -> GeneratorDraws:

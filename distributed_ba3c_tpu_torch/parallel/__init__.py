@@ -1,2 +1,3 @@
-"""The learner's train state (``train_step.py``); the sync and V-trace
-steps wait for ROADMAP queue A item 6."""
+"""The learners' steps on one device: the train state and the sync
+(n-step A3C) step in ``train_step.py``, the V-trace step in
+``vtrace_step.py``."""

@@ -86,6 +86,29 @@ def test_sync_trainer_learns_the_fake_env(tmp_path):
     assert "StartProcOrThread: started 4 processes" in r.stderr
 
 
+def test_sync_trainer_trains_a_jax_game_through_host_players(tmp_path):
+    """``--env jax:qbert`` on the sync path: 4 simulator processes each
+    step one Q*bert on CPU tensors (``envs/jaxenv/host_adapter.py``) at
+    the game's 84x84 frames, the learner trains at full conv width, and
+    the greedy Evaluator plays 2 episodes through the same players."""
+    logdir = tmp_path / "log"
+    r = subprocess.run(
+        [sys.executable, "-m", "distributed_ba3c_tpu_torch", "--task", "train",
+         "--trainer", "tpu_sync_ba3c", "--env", "jax:qbert", "--simulator_procs", "4",
+         "--batch_size", "16", "--fc_units", "16", "--steps_per_epoch", "10",
+         "--max_epoch", "1", "--nr_eval", "2", "--device", "cpu", "--logdir", str(logdir)],
+        capture_output=True, text=True, timeout=240, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO),
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+    final = json.loads((logdir / "stat.json").read_text())[-1]
+    assert final["global_step"] == 10
+    assert final["tele/master/datapoints_total"] >= 10 * 16
+    for k in ("eval_mean_score", "eval_max_score"):
+        assert k in final and final[k] == final[k], k  # present and not NaN
+    assert "StartProcOrThread: started 4 processes" in r.stderr
+
+
 def test_sync_trainer_refuses_a_block_larger_than_the_serving_bucket(tmp_path):
     with pytest.raises(SystemExit, match="predict_batch_size"):
         cli.main(["--env", "cpp:pong", "--simulator_procs", "16", "--predict_batch_size", "8",

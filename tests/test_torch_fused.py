@@ -267,8 +267,10 @@ class CountdownEnv:
         return (t[:, None, None] * 10).to(torch.uint8).expand(-1, 16, 16).contiguous()
 
     @staticmethod
-    def sample_noise(n, k, generator, device):
-        return torch.rand((n, k, 2), generator=generator, device=device)
+    def step_noise(n, generator, device):
+        return torch.rand((n, 1), generator=generator, device=device)
+
+    reset_noise = step_noise
 
 
 def test_greedy_eval_counts_each_envs_first_finished_episode():

@@ -174,8 +174,10 @@ def test_sample_noise_ranges_and_generator():
 
 
 def test_get_env_serves_pong_and_names_the_queue_item_for_others():
+    """Every game of the set is ported now (tests/test_torch_games.py):
+    ``get_env`` serves pong and the others, and names them for an
+    unknown game."""
     assert jaxenv.get_env("pong") is pong
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        jaxenv.get_env("breakout")
-    with pytest.raises(ValueError, match="unknown"):
+    assert jaxenv.get_env("breakout").num_actions == 4
+    with pytest.raises(ValueError, match="unknown jax env 'tetris'.*'breakout'"):
         jaxenv.get_env("tetris")
