@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--parity`` only builds the kernels and holds each against its plain
 version, forward and backward, the first call to make after a kernel
-changes; ``--kernel-times 1,128,256,2560`` also times every block's
+changes; ``--trace`` runs only the ``[trace]`` phase; ``--kernel-times 1,128,256,2560`` also times every block's
 forward and backward kernels at those batches and prints them as one JSON
 line, to compare two source trees in one call.)
 
@@ -41,7 +41,15 @@ the same draws (equal frames, rewards, dones and state), BASELINE config
 0.999``: 1024 envs, learner chunks of 4096) for 2 epochs, a ``--load``
 epoch and ``--task eval --load`` through host players, one fused epoch of
 each other game with its docs/RECIPES.md flags, and the sync trainer on
-16 ``jax:breakout`` host players whose children never initialize CUDA.
+16 ``jax:breakout`` host players whose children never initialize CUDA;
+and ``[trace]``: the telemetry plane -- the sync trainer with
+``--trace_sample 8 --telemetry_port`` scraped over HTTP while it runs
+(complete causal chains env_step -> learner_step, hop histograms,
+``/trace`` through ``scripts/trace_dump.py``, each hop's median and p99),
+a traced V-trace epoch, the tracing overhead on the plane alone, a
+``torch.profiler`` capture of two annotated learner steps whose kernel
+events match the launch counters, a SIGTERM flight dump, and the fused
+trainer's scrape endpoint, TensorBoard events and channels.
 The kernels' parity covers the V-trace and overlap learners' batches
 (150, 2688) and CoinRun's (1024, 4096). An
 ``[env]`` line first records which of pyzmq, msgpack, tensorboard and
@@ -1494,16 +1502,20 @@ def phase_sync(dev, states):
             "numbers": numbers, "grad_rel_l2_b128": grad["rel_l2"]}
 
 
-def phase_plane_alone(dev, seconds: float = 5.0) -> dict:
+def phase_plane_alone(dev, seconds: float = 5.0, trace_sample: int = 0,
+                      tag: str = "[sync]") -> dict:
     """The [sync] run's actor plane without its learner: the cpp:pong fleet
     (4 block-shm env servers of 16 envs), the master and the predictor,
     the train queue drained by a thread that only counts. Its rates, set
     against the full run's, give what the learner's thread costs the plane
-    (they share one interpreter)."""
+    (they share one interpreter). ``trace_sample`` > 0 arms the trace
+    plane here and in the env servers (``BA3C_TRACE``) for this run."""
     import tempfile
     import threading
 
     import torch
+
+    from distributed_ba3c_tpu_torch.telemetry import tracing
 
     from distributed_ba3c_tpu_torch.actors.master import BA3CSimulatorMaster
     from distributed_ba3c_tpu_torch.cli import _sync_fleet, build_config, make_parser
@@ -1536,18 +1548,23 @@ def phase_plane_alone(dev, seconds: float = 5.0) -> dict:
         pred.start()
         master.start()
         t.start()
-        for p in procs:
-            p.start()
+        tracing.set_sampling(trace_sample)
+        os.environ["BA3C_TRACE"] = str(trace_sample)
         try:
+            for p in procs:
+                p.start()
             time.sleep(2.0)  # the servers' start
             before, n0, t0 = _tele("predictor"), drained[0], time.perf_counter()
             time.sleep(seconds)
             after, n1, wall = _tele("predictor"), drained[0], time.perf_counter() - t0
         finally:
+            tracing.set_sampling(0)
+            os.environ.pop("BA3C_TRACE", None)
             stop.set()
-            for p in procs:
+            started = [p for p in procs if p.pid is not None]
+            for p in started:
                 p.terminate()
-            for p in procs:
+            for p in started:
                 p.join(10)
             master.close()
             pred.stop()
@@ -1557,7 +1574,8 @@ def phase_plane_alone(dev, seconds: float = 5.0) -> dict:
            "rows_per_batch": d["rows_total"] / max(d["batches_total"], 1),
            "serve_mean_ms": 1e3 * d["serve_latency_s_sum"] / max(d["serve_latency_s_count"], 1),
            "datapoints_per_s": (n1 - n0) / wall}
-    log("[sync] actor plane alone (no learner): " + ", ".join(f"{k} {v:.6g}" for k, v in out.items()))
+    log(f"{tag} actor plane alone (no learner{', --trace_sample %d' % trace_sample if trace_sample else ''}): "
+        + ", ".join(f"{k} {v:.6g}" for k, v in out.items()))
     return out
 
 
@@ -2186,6 +2204,487 @@ def phase_games(dev) -> dict:
 
 #: the launch counts the paths are read by: each kernel wrapper's, and
 #: conv_block's backward passes on the card (conv_block_vjp)
+TRACE_N = 8               # --trace_sample: 1 in 8 block steps of each env server traced
+TRACE_VT_STEPS = 40       # learner steps of the traced V-trace epoch
+TRACE_PAIRS = 3           # alternating untraced/traced pairs of the plane alone
+TRACE_PLANE_S = 3.0       # seconds each plane-alone window measures
+TRACE_FLOOR = 0.90        # the traced/untraced median below which [trace] fails
+TRACE_JAX_BOUND = 0.98    # the JAX package's gate (docs/observability.md), reported
+TRACE_MIN_CHAINS = 5      # complete chains a traced epoch must show
+#: each hop's role, and the hop it is parented on (the main chain's
+#: predecessor, or the span a branch hangs from; docs/observability.md)
+HOP_ROLE = {"env_step": "master", "wire": "master", "master_ingest": "master",
+            "predict": "master", "nstep_flush": "master", "unroll_flush": "master",
+            "predict_dispatch": "predictor", "predict_fetch": "predictor",
+            "queue_wait": "learner", "staging_wait": "learner", "collate": "learner",
+            "h2d_copy": "learner", "ingest": "learner", "learner_step": "learner"}
+TRACE_BRANCHES = {"predict_dispatch": "master_ingest", "predict_fetch": "predict_dispatch",
+                  "staging_wait": "queue_wait"}
+#: the hand-written kernels as a capture names them, and the wrappers
+#: whose launches each symbol counts (the forward, route and dgrad run the
+#: one conv_block_kernel mainloop with three epilogues; a wgrad launch is
+#: its wgrad_kernel and then its wgrad_reduce_kernel)
+KERNEL_SYMBOLS = {"wgrad_reduce_kernel": ("conv_block_wgrad",),
+                  "wgrad_kernel": ("conv_block_wgrad",),
+                  "conv_block_kernel": ("conv_block_fwd", "conv_block_route",
+                                        "conv_block_dgrad")}
+
+
+def trace_chain(flush: str) -> tuple:
+    return ("env_step", "wire", "master_ingest", "predict", flush, "queue_wait",
+            "collate", "h2d_copy", "ingest", "learner_step")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Scraper(threading.Thread):
+    """Scrapes /metrics, /trace and /flight of a live run every 0.5 s over
+    HTTP and keeps the newest answer of each (the endpoint dies with the
+    run)."""
+
+    def __init__(self, port: int):
+        super().__init__(daemon=True, name="trace-scraper")
+        self.base = f"http://127.0.0.1:{port}"
+        self.last = {}
+        self.scrapes = 0
+        self.stop_evt = threading.Event()
+
+    def get(self, path: str) -> bytes:
+        import urllib.request
+
+        with urllib.request.urlopen(self.base + path, timeout=10) as r:
+            return r.read()
+
+    def run(self) -> None:
+        while not self.stop_evt.wait(0.5):
+            for path in ("/metrics", "/trace", "/flight?kind=checkpoint", "/flight"):
+                try:
+                    self.last[path] = self.get(path)
+                except OSError:
+                    continue  # not up yet, or gone
+                if path == "/metrics":
+                    self.scrapes += 1
+
+
+def _scraped_run(fn, port: int):
+    """``fn()`` with a scraper on ``port`` beside it: (fn's result, scraper)."""
+    scraper = _Scraper(port)
+    scraper.start()
+    try:
+        out = fn()
+    finally:
+        scraper.stop_evt.set()
+        scraper.join(10)
+    return out, scraper
+
+
+def trace_chains(doc: dict, flush: str, tag: str) -> dict:
+    """Checks every trace of a /trace document that reached the learner:
+    the whole chain present, each hop parented on the one before it (the
+    branches on theirs), under its role, starts in chain order, no
+    negative duration. Returns the counts."""
+    chain = trace_chain(flush)
+    traces = {}
+    for sp in doc["spans"]:
+        if sp["dur_us"] < 0:
+            raise AssertionError(f"{tag} negative duration: {sp}")
+        traces.setdefault(sp["trace_id"], {}).setdefault(sp["name"], sp)
+    done = [by for by in traces.values() if "learner_step" in by]
+    for by in done:
+        missing = [h for h in chain + tuple(TRACE_BRANCHES) if h not in by]
+        if missing:
+            raise AssertionError(f"{tag} trace {by['learner_step']['trace_id']} lacks {missing}")
+        parents = dict(zip(chain[1:], chain)) | TRACE_BRANCHES
+        for hop, parent in parents.items():
+            if by[hop]["parent_id"] != by[parent]["span_id"]:
+                raise AssertionError(f"{tag} {hop} is not parented on {parent}: {by}")
+        for hop, sp in by.items():
+            if hop in HOP_ROLE and sp["role"] != HOP_ROLE[hop]:
+                raise AssertionError(f"{tag} {hop} recorded under {sp['role']}")
+        starts = [by[h]["ts_us"] for h in chain]
+        if starts != sorted(starts):
+            raise AssertionError(f"{tag} chain starts out of order: {starts}")
+    if len(done) < TRACE_MIN_CHAINS:
+        raise AssertionError(f"{tag} {len(done)} complete chains (< {TRACE_MIN_CHAINS}) "
+                             f"of {len(traces)} traces")
+    return {"traces": len(traces), "complete_chains": len(done)}
+
+
+def hop_split(doc: dict) -> dict:
+    """Median and p99 (nearest rank) of each hop's duration in ms, over
+    every span of the document."""
+    import numpy as np
+
+    durs = {}
+    for sp in doc["spans"]:
+        durs.setdefault(sp["name"], []).append(sp["dur_us"] / 1e3)
+    return {name: {"n": len(v), "median_ms": float(np.median(v)),
+                   "p99_ms": float(np.sort(v)[min(len(v) - 1, int(0.99 * len(v)))])}
+            for name, v in durs.items()}
+
+
+def trace_dump_validates(doc: dict, tag: str) -> int:
+    """The /trace document through scripts/trace_dump.py --validate (a
+    subprocess, as a user runs it); returns the complete events it wrote."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        src, out = os.path.join(d, "trace.json"), os.path.join(d, "chrome.json")
+        with open(src, "w") as f:
+            json.dump(doc, f)
+        r = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "trace_dump.py"),
+                            src, "-o", out, "--validate"],
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            raise AssertionError(f"{tag} scripts/trace_dump.py --validate failed: "
+                                 f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
+        with open(out) as f:
+            return sum(1 for e in json.load(f)["traceEvents"] if e.get("ph") == "X")
+
+
+def hop_histograms(metrics: str, hops, tag: str) -> None:
+    """Each hop's hop_<name>_s histogram is on /metrics under its role."""
+    for hop in hops:
+        line = f'ba3c_hop_{hop}_s_count{{role="{HOP_ROLE[hop]}"}}'
+        if line not in metrics:
+            raise AssertionError(f"{tag} /metrics has no {line}")
+
+
+def trace_capture(dev, states) -> dict:
+    """``utils/profiling.py::capture_trace`` around two sampled learner
+    steps of the sync trainer's ``Trainer.run_step`` at B=SYNC_B (a feed
+    whose batches carry a trace ref): the Chrome JSON must hold each
+    step's ``step_annotation`` range with its trace and span ids, and the
+    hand-written kernels by symbol, launched inside those ranges, as many
+    as the launch counters counted."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distributed_ba3c_tpu_torch.config import BA3CConfig
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+    from distributed_ba3c_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+    from distributed_ba3c_tpu_torch.telemetry import tracing
+    from distributed_ba3c_tpu_torch.train.trainer import Trainer, TrainLoopConfig
+    from distributed_ba3c_tpu_torch.utils import profiling
+
+    tag = "[trace]"
+    x = np.concatenate(states)[:SYNC_B]
+    rng = np.random.default_rng(5)
+
+    class Feed:
+        """Batches of the sync feed's layout; from the second on, each
+        carries a trace ref (ids from the sender's make_id)."""
+
+        def __init__(self):
+            self.n = 0
+
+        def next_batch(self, timeout=None):
+            self.n += 1
+            b = {"state": x, "action": rng.integers(0, 6, SYNC_B).astype(np.int32),
+                 "return": rng.standard_normal(SYNC_B).astype(np.float32)}
+            if self.n > 1:
+                b["_trace"] = tracing.TraceRef(tracing.make_id(b"capture", self.n), 1)
+            return b
+
+    cfg = BA3CConfig(batch_size=SYNC_B)
+    net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(0))
+    state = create_train_state(net, cfg)
+    trainer = Trainer(TrainLoopConfig(), cfg, make_train_step(net, state.optimizer, cfg),
+                      state, Feed(), [])
+    trainer.run_step()  # untraced: the first call's allocations stay out
+    torch.cuda.synchronize()
+    tracing.reset()
+    set_launch_counts({k: 0 for k in COUNTED})
+    with tempfile.TemporaryDirectory() as d:
+        profiling.capture_trace(d, 0, lambda: [trainer.run_step() for _ in range(2)])
+        launches = launch_counts()
+        with open(os.path.join(d, profiling.TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+    steps = {s["parent_id"]: s for s in tracing.tracer().spans.snapshot()
+             if s["name"] == "learner_step"}
+    ranges = sorted((e for e in events if e.get("ph") == "X"
+                     and e.get("cat") == "user_annotation"
+                     and str(e.get("name", "")).startswith("train_step step=")),
+                    key=lambda e: e["ts"])
+    if len(ranges) != 2:
+        raise AssertionError(f"{tag} {len(ranges)} step_annotation ranges in the capture "
+                             f"(want 2): {[e.get('name') for e in ranges]}")
+    for e in ranges:
+        ids = dict(kv.split("=") for kv in e["name"].split()[1:])
+        sp = steps.get(int(ids["span_id"]))
+        if sp is None or sp["trace_id"] != int(ids["trace_id"]):
+            raise AssertionError(f"{tag} range {e['name']!r} names no learner_step span")
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    cats = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+    per_step = [{k: 0 for k in KERNEL_SYMBOLS} for _ in ranges]
+    how = {"launch_in_range": 0, "gpu_time_after_range_start": 0}
+    for e in events:
+        if e.get("cat") != "kernel" or e.get("ph") != "X":
+            continue
+        sym = next((k for k in KERNEL_SYMBOLS if k in e.get("name", "")), None)
+        if sym is None:
+            continue
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        if t is not None:  # the launch call lies inside a step's range
+            i = next((i for i, r in enumerate(ranges) if r["ts"] <= t <= r["ts"] + r["dur"]),
+                     None)
+            how["launch_in_range"] += 1
+        else:  # no launch event: the step whose range began last before it ran
+            i = max((i for i, r in enumerate(ranges) if r["ts"] <= e["ts"]), default=None)
+            how["gpu_time_after_range_start"] += 1
+        if i is None:
+            raise AssertionError(f"{tag} {sym} ran outside the annotated steps")
+        per_step[i][sym] += 1
+    want = {sym: sum(launches[w] for w in wrappers) // 2
+            for sym, wrappers in KERNEL_SYMBOLS.items()}
+    log(f"{tag} capture: annotated ranges {[e['name'] for e in ranges]}; kernel events per "
+        f"step {per_step} (the launch counters: {launches}, so {want} a step); kernels "
+        f"placed by {how}; event categories {cats}")
+    if any(n != want for n in per_step) or want != {"wgrad_reduce_kernel": 4, "wgrad_kernel": 4,
+                                                    "conv_block_kernel": 11}:
+        raise AssertionError(f"{tag} the capture's kernel events {per_step} do not match the "
+                             f"launch counters ({want} a step, 11/4/4 expected)")
+    return {"per_step": per_step, "launches": launches, "placed_by": how,
+            "ranges": [e["name"] for e in ranges]}
+
+
+def trace_flight_dump(dev) -> dict:
+    """SIGTERM a short traced sync run (a separate process, its own logdir):
+    ``flight-<pid>.json`` must be there with the JAX document's keys."""
+    import signal
+    import tempfile
+
+    tag = "[trace]"
+    with tempfile.TemporaryDirectory() as logdir:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distributed_ba3c_tpu_torch", "--task", "train",
+             "--trainer", "tpu_sync_ba3c", "--env", "fake", "--simulator_procs", "2",
+             "--batch_size", "16", "--steps_per_epoch", "100000", "--max_epoch", "1",
+             "--nr_eval", "0", "--trace_sample", str(TRACE_N), "--device", str(dev),
+             "--logdir", logdir],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        started = threading.Event()
+        tail = []
+
+        def read():
+            for line in proc.stderr:
+                tail.append(line)
+                if "StartProcOrThread: started" in line:
+                    started.set()
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        try:
+            if not started.wait(120):
+                raise AssertionError(f"{tag} the run to SIGTERM never started: {''.join(tail)[-2000:]}")
+            time.sleep(2.0)  # a few learner steps
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(60)
+        finally:
+            for sig in (signal.SIGTERM, signal.SIGKILL):  # its children, and anything left
+                try:
+                    os.killpg(proc.pid, sig)
+                except ProcessLookupError:
+                    break
+                time.sleep(1.0)
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(10)
+            reader.join(10)
+        path = os.path.join(logdir, f"flight-{proc.pid}.json")
+        if not os.path.exists(path):
+            raise AssertionError(f"{tag} no {os.path.basename(path)} after SIGTERM (rc {rc}): "
+                                 f"{os.listdir(logdir)}; {''.join(tail)[-2000:]}")
+        with open(path) as f:
+            doc = json.load(f)
+    keys = {"reason", "pid", "dumps", "anchor_monotonic", "anchor_wall", "events"}
+    kinds = [e["kind"] for e in doc["events"]]
+    if set(doc) != keys or doc["reason"] != "SIGTERM" or doc["pid"] != proc.pid \
+            or "sigterm" not in kinds:
+        raise AssertionError(f"{tag} flight dump {sorted(doc)}, reason {doc.get('reason')}, "
+                             f"kinds {kinds}")
+    log(f"{tag} SIGTERM: flight-{proc.pid}.json with keys {sorted(doc)}, {len(kinds)} events "
+        f"({sorted(set(kinds))}); exit {rc}")
+    return {"rc": rc, "events": len(kinds), "kinds": sorted(set(kinds))}
+
+
+def trace_fused(dev) -> dict:
+    """Two fused epochs (128 envs x 20, 5 updates each) with
+    ``--telemetry_port``: /metrics serves the learner's counters while the
+    run lasts (train_steps_total past the first epoch's), and the logdir
+    holds TensorBoard events whose tags are stat.json's keys and a
+    channels.jsonl."""
+    import tempfile
+
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    from distributed_ba3c_tpu_torch import telemetry
+
+    tag = "[trace]"
+    c_steps = telemetry.registry("learner").counter("train_steps_total")
+    base = c_steps.value()
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as logdir:
+        (wall, launches), scraper = _scraped_run(lambda: _cli_run(
+            ["--task", "train", "--trainer", "tpu_fused_ba3c", "--env", "jax:pong",
+             "--batch_size", str(TRAIN_B), "--rollout_len", str(TRAIN_T),
+             "--steps_per_epoch", "5", "--max_epoch", "2", "--nr_eval", "8",
+             "--eval_max_steps", "50", "--telemetry_port", str(port), "--logdir", logdir],
+            dev, tag), port)
+        with open(os.path.join(logdir, "stat.json")) as f:
+            stats = json.load(f)
+        acc = EventAccumulator(logdir)
+        acc.Reload()
+        tags = set(acc.Tags()["scalars"])
+        with open(os.path.join(logdir, "channels.jsonl")) as f:
+            channels = [json.loads(x) for x in f]
+    metrics = scraper.last.get("/metrics", b"").decode()
+    served = next((float(x.split()[-1]) for x in metrics.splitlines()
+                   if x.startswith('ba3c_train_steps_total{role="learner"}')), None)
+    keys = {k for r in stats for k in r if k != "global_step"}
+    log(f"{tag} fused, --telemetry_port: {scraper.scrapes} scrapes, train_steps_total served "
+        f"{served} (run start {base}); {len(tags)} TensorBoard tags, {len(keys)} stat.json keys; "
+        f"{len(channels)} channel points; {wall:.2f} s")
+    if served is None or served < base + 5:
+        raise AssertionError(f"{tag} /metrics never served the learner's counters past epoch 1")
+    if tags != keys:
+        raise AssertionError(f"{tag} TensorBoard tags {sorted(tags ^ keys)} differ from stat.json's")
+    if [p["x"] for p in channels if p["channel"] == "loss"] != [5, 10]:
+        raise AssertionError(f"{tag} channels.jsonl {channels}")
+    want = {k: 10 * n for k, n in PER_UPDATE.items()}
+    want["conv_block_fwd"] += 2 * 50 * 4
+    if launches != want:
+        raise AssertionError(f"{tag} fused launches {launches}, expected {want}")
+    return {"wall_s": wall, "launches": launches, "tb_tags": len(tags),
+            "scrapes": scraper.scrapes}
+
+
+def phase_trace(dev, states) -> dict:
+    """The telemetry plane on the card. (1) The sync trainer as [sync] runs
+    it (cpp:pong, 4 block-shm servers x 16 envs, B=128) with
+    ``--trace_sample 8 --telemetry_port`` for one epoch, scraped over HTTP
+    while it runs: every trace that reached the learner holds the whole
+    chain env_step -> ... -> learner_step, each hop parented on the one
+    before it (dispatch/fetch and staging_wait as branches), under its
+    role, in order, no negative duration; each hop's histogram on
+    /metrics; /trace valid through scripts/trace_dump.py; 4/4/3/4 launches
+    a learner step. The hops' median and p99, and the host shares of a
+    served batch and of a learner step. (2) One V-trace epoch, traced: its
+    chains run through unroll_flush. (3) Overhead: TRACE_PAIRS alternating
+    pairs of the plane alone, untraced and traced, the order flipped
+    between pairs; the median traced/untraced rows/s (fails below
+    TRACE_FLOOR). (4) ``capture_trace`` around two sampled learner steps
+    (:func:`trace_capture`). (5) A SIGTERM flight dump
+    (:func:`trace_flight_dump`). (6) The fused trainer's scrape endpoint,
+    TensorBoard events and channels (:func:`trace_fused`)."""
+    import tempfile
+
+    from distributed_ba3c_tpu_torch.telemetry import tracing
+
+    tag = "[trace]"
+    t_phase = time.perf_counter()
+    base = ["--task", "train", "--batch_size", str(SYNC_B), "--nr_eval", "0",
+            "--env", "cpp:pong", "--wire", "block-shm", "--simulator_procs", str(SYNC_SIMS),
+            "--trace_sample", str(TRACE_N), "--max_epoch", "1"]
+    out = {"launches": {}}
+    try:
+        for name, trainer, steps, flush, extra in (
+                ("sync", "tpu_sync_ba3c", SYNC_STEPS, "nstep_flush", []),
+                ("vtrace", "tpu_vtrace_ba3c", TRACE_VT_STEPS, "unroll_flush",
+                 ["--local_time_max", str(VT_T)])):
+            tracing.reset()
+            port = _free_port()
+            with tempfile.TemporaryDirectory() as logdir:
+                run, scraper = _scraped_run(lambda: _sync_run(
+                    [*base, "--trainer", trainer, "--steps_per_epoch", str(steps), *extra,
+                     "--telemetry_port", str(port), "--logdir", logdir], dev, tag), port)
+            _sync_checks(run, steps, exact_serving=True, tag=tag,
+                         samples_per_step=SYNC_B if name == "sync" else VT_SEGS * VT_T)
+            out["launches"][name] = run["launches"]
+            if "/trace" not in scraper.last or "/metrics" not in scraper.last:
+                raise AssertionError(f"{tag} {name}: nothing scraped ({scraper.scrapes} scrapes)")
+            doc = json.loads(scraper.last["/trace"])
+            metrics = scraper.last["/metrics"].decode()
+            flight = json.loads(scraper.last["/flight"])
+            counts = trace_chains(doc, flush, f"{tag} {name}")
+            hop_histograms(metrics, trace_chain(flush) + tuple(TRACE_BRANCHES), f"{tag} {name}")
+            n_events = trace_dump_validates(doc, f"{tag} {name}")
+            split = hop_split(doc)
+            out[name] = {"wall_s": run["wall_s"], "scrapes": scraper.scrapes, **counts,
+                         "spans": len(doc["spans"]), "dropped_spans": doc["dropped_spans"],
+                         "trace_dump_events": n_events, "flight_events": len(flight),
+                         "clock_peers": len(doc["clock_offsets_us"]), "split": split,
+                         "numbers": _sync_numbers(run, steps)}
+            log(f"{tag} {name}: {counts['complete_chains']} complete chains of "
+                f"{counts['traces']} traces, {len(doc['spans'])} spans, "
+                f"{len(doc['clock_offsets_us'])} clock peers, trace_dump.py {n_events} events "
+                f"valid; {scraper.scrapes} scrapes; {run['wall_s']:.2f} s")
+            log(f"{tag} {name} hops, ms (n, median, p99): " + "; ".join(
+                f"{h} {v['n']} {v['median_ms']:.4g} {v['p99_ms']:.4g}"
+                for h, v in sorted(split.items(), key=lambda kv: -kv[1]["median_ms"])))
+            if name == "sync":
+                med = {h: v["median_ms"] for h, v in split.items()}
+                served = med["predict_dispatch"] / (med["predict_dispatch"] + med["predict_fetch"])
+                host = med["queue_wait"] + med["collate"] + med["ingest"]
+                out["host_share"] = {
+                    "served_batch_dispatch_share": served,
+                    "learner_feed_ms": host, "learner_step_ms": med["learner_step"],
+                    "learner_feed_share": host / (host + med["learner_step"])}
+                log(f"{tag} host shares (medians): a served batch's predict_dispatch "
+                    f"{med['predict_dispatch']:.4g} ms against predict_fetch "
+                    f"{med['predict_fetch']:.4g} ms (dispatch share {served:.3f}); the learner's "
+                    f"queue_wait + collate + ingest {host:.4g} ms against learner_step "
+                    f"{med['learner_step']:.4g} ms (feed share {out['host_share']['learner_feed_share']:.3f})")
+    finally:
+        tracing.set_sampling(0)
+        os.environ.pop("BA3C_TRACE", None)
+        tracing.reset()
+
+    rates = {"untraced": [], "traced": []}
+    for i in range(TRACE_PAIRS):
+        order = (0, TRACE_N) if i % 2 == 0 else (TRACE_N, 0)
+        for n in order:
+            r = phase_plane_alone(dev, seconds=TRACE_PLANE_S, trace_sample=n, tag=tag)
+            rates["traced" if n else "untraced"].append(r["predictor_rows_per_s"])
+    import numpy as np
+
+    ratio = float(np.median(rates["traced"]) / np.median(rates["untraced"]))
+    out["overhead"] = {"rows_per_s": rates, "median_ratio": ratio,
+                       "meets_jax_bound": ratio >= TRACE_JAX_BOUND}
+    log(f"{tag} overhead, plane alone, {TRACE_PAIRS} alternating pairs: rows/s untraced "
+        f"{rates['untraced']}, traced {rates['traced']}; median traced/untraced {ratio:.4f} "
+        f"({'meets' if ratio >= TRACE_JAX_BOUND else 'misses'} the JAX bound {TRACE_JAX_BOUND}; "
+        f"fails below {TRACE_FLOOR})")
+    if ratio < TRACE_FLOOR:
+        raise AssertionError(f"{tag} tracing costs the plane {1 - ratio:.1%} (ratio {ratio:.4f})")
+    tracing.reset()
+
+    out["capture"] = trace_capture(dev, states)
+    out["launches"]["capture"] = out["capture"]["launches"]
+    out["flight"] = trace_flight_dump(dev)
+    out["fused"] = trace_fused(dev)
+    out["launches"]["fused"] = out["fused"]["launches"]
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"{tag} phase {out['wall_s']:.1f} s")
+    return out
+
+
 COUNTED = ("conv_block_fwd", "conv_block_vjp", "conv_block_route", "conv_block_dgrad",
            "conv_block_wgrad")
 
@@ -2225,6 +2724,9 @@ def main(argv=None) -> int:
                          "each interpreter switch interval S (seconds) and "
                          "--predict_batch_size P (default 16), then the actor plane "
                          "without its learner; prints no result")
+    ap.add_argument("--trace", action="store_true",
+                    help="only build and run the [trace] phase (the telemetry plane); "
+                         "prints no result")
     ap.add_argument("--kernel-times", metavar="B,B,...",
                     help="only build, hold every block's forward against its plain "
                          "version and time it and each backward kernel at these "
@@ -2269,6 +2771,9 @@ def main(argv=None) -> int:
                 f"{k} {v:.6g}" for k, v in _sync_numbers(run, SYNC_STEPS).items()))
         sys.setswitchinterval(0.005)
         phase_plane_alone(dev)
+        return 0
+    if args.trace:
+        phase_trace(dev, pong_states(8)[0])
         return 0
     if args.parity:
         phase_kernels(dev, timed_batches=())
@@ -2345,8 +2850,10 @@ def main(argv=None) -> int:
     overlap_launches = {k: sum(v[k] for v in overlap["launches"].values()) for k in COUNTED}
     games = phase_games(dev)
     games_launches = {k: sum(v[k] for v in games["launches"].values()) for k in COUNTED}
+    trace = phase_trace(dev, states)
+    trace_launches = {k: sum(v[k] for v in trace["launches"].values()) for k in COUNTED}
     for name, got in (("vtrace", vtrace_launches), ("overlap", overlap_launches),
-                      ("games", games_launches)):
+                      ("games", games_launches), ("trace", trace_launches)):
         if not all(got.values()):
             raise AssertionError(f"[{name}] a kernel of the path never launched: {got}")
 
@@ -2356,10 +2863,12 @@ def main(argv=None) -> int:
                    "sync": sync_launches["conv_block_fwd"],
                    "vtrace": vtrace_launches["conv_block_fwd"],
                    "overlap": overlap_launches["conv_block_fwd"],
-                   "games": games_launches["conv_block_fwd"]}
+                   "games": games_launches["conv_block_fwd"],
+                   "trace": trace_launches["conv_block_fwd"]}
     bwd_by_path = {k: {"train": train_launches[k], "resume": resume["launches"]["train"][k],
                        "sync": sync_launches[k], "vtrace": vtrace_launches[k],
-                       "overlap": overlap_launches[k], "games": games_launches[k]}
+                       "overlap": overlap_launches[k], "games": games_launches[k],
+                       "trace": trace_launches[k]}
                    for k in COUNTED if k != "conv_block_fwd"}
     fwd_ms_at = {nb: {k: sum(r[k] for r in rs if r["block"] != "block0_uint8")
                       for k in ("ms", "plain_ms", "library_ms")}
@@ -2440,7 +2949,7 @@ def main(argv=None) -> int:
                     "overlap": {k: v for k, v in overlap.items()
                                 if k not in ("vjp_rows", "fwd_rows")},
                     "games": {k: v for k, v in games.items() if k != "vjp_rows"},
-                    "packages": probe}))
+                    "trace": trace, "packages": probe}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,7 +6,11 @@ prediction, record the (state, action, value) transition, and on episode
 end or ``local_time_max`` truncation fold the client's memory into
 discounted n-step returns pushed to the train queue. The block wire's flush
 is vectorized per cohort with the same float64 return scan, so both wires
-emit identical streams (``tests/test_torch_actor_plane.py``).
+emit identical streams (``tests/test_torch_actor_plane.py``). A sampled
+step's trace (telemetry/tracing.py) records ``master_ingest``,
+``predict`` and ``nstep_flush`` here, and rides the first datapoint its
+flush emits as a 4th element, ``[state, action, R, ref]``, which the feed
+strips before collate (``data/dataflow.py::claim_trace``).
 
 This module imports no torch; its predictor is duck-typed (``put_task``,
 ``put_block_task``, ``num_actions``).
@@ -58,19 +62,37 @@ class BA3CSimulatorMaster(SimulatorMaster):
         self.score_queue = score_queue
 
     def _on_state(self, state: np.ndarray, ident: bytes) -> None:
+        # claim the receive loop's parked trace ref (None when unsampled)
+        client0 = self.clients[ident]
+        ref, client0.pending_trace = client0.pending_trace, None
+        if ref is not None:
+            # receive -> dispatch: decode and the previous step's flush,
+            # backpressure stalls included, stay a master hop
+            ref = ref.hop("master_ingest", self.tele_role)
+
         def cb(action: int, value: float, logp: float):
             client = self.clients[ident]
             # safe cross-thread append: the simulator waits for this very
             # action, so the master cannot touch client.memory until
             # send_action below releases it
-            client.memory.append(TransitionExperience(state, action, value))
+            trace = ref.hop("predict", self.tele_role) if ref else None
+            client.memory.append(
+                TransitionExperience(state, action, value, trace=trace)
+            )
             self.send_action(ident, action)
 
         # a shed task answers with a uniform-random action instead of
-        # wedging the simulator; without deadlines it never fires
-        self.predictor.put_task(
-            state, cb, shed_callback=self._shed_fallback_row(cb)
-        )
+        # wedging the simulator; without deadlines it never fires. trace=
+        # only when sampled: duck-typed predictors need no new keyword
+        if ref is None:
+            self.predictor.put_task(
+                state, cb, shed_callback=self._shed_fallback_row(cb)
+            )
+        else:
+            self.predictor.put_task(
+                state, cb, shed_callback=self._shed_fallback_row(cb),
+                trace=ref,
+            )
 
     def _on_episode_over(self, ident: bytes) -> None:
         client = self.clients[ident]
@@ -94,13 +116,22 @@ class BA3CSimulatorMaster(SimulatorMaster):
         if not is_over:
             last = mem[-1]
             mem = mem[:-1]
+        # a sampled step's trace continues on the FIRST datapoint this
+        # flush emits (the per-env mirror of _flush_cohort's claim)
+        rider = None
+        for k in mem:
+            if k.trace is not None:
+                rider, k.trace = k.trace.hop("nstep_flush", self.tele_role), None
+                break
         R = float(init_r)
         for k in reversed(mem):
             R = k.reward + self.gamma * R
+            item = [k.state, k.action, np.float32(R)]
+            if rider is not None:
+                item.append(rider)
+                rider = None
             # backpressure pauses actors, but stays shutdown-responsive
-            if not self._put_stoppable(
-                self.queue, [k.state, k.action, np.float32(R)]
-            ):
+            if not self._put_stoppable(self.queue, item):
                 return  # master stopped while the learner was backed up
         self._c_datapoints.inc(len(mem))  # one batched inc per flush
         client.memory = [] if is_over else [last]
@@ -108,19 +139,35 @@ class BA3CSimulatorMaster(SimulatorMaster):
     # -- block wire (one message per env server per step) ------------------
     def _on_block_state(self, states: np.ndarray, ident: bytes) -> None:
         blk = self.clients[ident]
+        # claim the receive loop's parked trace ref (None when unsampled)
+        ref, blk.pending_trace = blk.pending_trace, None
+        if ref is not None:
+            ref = ref.hop("master_ingest", self.tele_role)
 
         def cb(actions: np.ndarray, values: np.ndarray, logps: np.ndarray):
             # safe cross-thread append: the env server waits for this very
             # action block (protocol serialization, as on the per-env
             # wire); blk is captured by object, so a pruned block is never
             # resurrected through the defaultdict from this thread
-            blk.steps.append(BlockStep(states, actions, values, logps))
+            st = BlockStep(states, actions, values, logps)
+            if ref is not None:
+                # the serve round trip (recv -> actions in hand); the
+                # predictor's dispatch/fetch spans ride the same trace
+                st.trace = ref.hop("predict", self.tele_role)
+            blk.steps.append(st)
             self.send_block_actions(ident, actions)
 
-        self.predictor.put_block_task(
-            states, cb,
-            shed_callback=self._shed_fallback_block(cb, len(states)),
-        )
+        if ref is None:
+            self.predictor.put_block_task(
+                states, cb,
+                shed_callback=self._shed_fallback_block(cb, len(states)),
+            )
+        else:
+            self.predictor.put_block_task(
+                states, cb,
+                shed_callback=self._shed_fallback_block(cb, len(states)),
+                trace=ref,
+            )
 
     def _on_block_flush(self, ident: bytes) -> None:
         """Per-env n-step emission over the block's shared step list.
@@ -184,8 +231,17 @@ class BA3CSimulatorMaster(SimulatorMaster):
             R32 = R.astype(np.float32)
             states = st.states
             acts = st.actions[cohort].tolist()
+            # a sampled step's trace continues on the FIRST datapoint its
+            # flush emits (one block lifetime = one trace, claimed once)
+            ref, st.trace = st.trace, None
+            if ref is not None:
+                ref = ref.hop("nstep_flush", self.tele_role)
             for i, j in enumerate(js):
-                if not put(q, [states[j], acts[i], R32[i]]):
+                item = [states[j], acts[i], R32[i]]
+                if ref is not None:
+                    item.append(ref)
+                    ref = None
+                if not put(q, item):
                     return False
         # telemetry per cohort: the datapoint count, and the env-step ->
         # train-ingest latency of the cohort's oldest step

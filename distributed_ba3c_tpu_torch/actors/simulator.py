@@ -11,11 +11,15 @@ plus the block wires of the batched env servers (envs/native.py), told
 apart per message by frame count. So a JAX env server can feed this master
 and a port server the JAX master.
 
-What is left out: the sanitizer's wrapped tables, the postmortem flight
-dumps, and the tracing plane. A received trace context (the 6th per-env
-element, or the second tail element of a block header) is counted on
-``trace_contexts_ignored_total`` and otherwise ignored; the port's senders
-never send one.
+The trace plane rides the same wire (telemetry/tracing.py): a sampled
+sender appends a trace context (the 6th per-env element, or the second
+tail element of a block header). The master handshakes the sender's clock,
+records the ``env_step`` and ``wire`` spans, and hands a ``TraceRef`` to
+its subclass's hops (``master_ingest``, ``predict``, ``nstep_flush`` /
+``unroll_flush``); a context that does not decode is counted on
+``trace_contexts_ignored_total``. An actor prune and a client drop record
+a flight event and dump the flight ring (telemetry/recorder.py). Left
+out: the sanitizer's wrapped tables.
 
 This module imports no torch: spawned simulator children import it.
 """
@@ -37,6 +41,7 @@ import numpy as np
 import zmq
 
 from distributed_ba3c_tpu_torch import telemetry
+from distributed_ba3c_tpu_torch.telemetry import tracing
 from distributed_ba3c_tpu_torch.envs.base import RLEnvironment
 from distributed_ba3c_tpu_torch.utils import logger
 from distributed_ba3c_tpu_torch.utils.concurrency import (
@@ -54,24 +59,28 @@ from distributed_ba3c_tpu_torch.utils.serialize import (
 class TransitionExperience:
     """One (state, action, value) awaiting its reward attachment."""
 
-    __slots__ = ("state", "action", "value", "reward")
+    __slots__ = ("state", "action", "value", "reward", "trace")
 
-    def __init__(self, state, action, value, reward=None):
+    def __init__(self, state, action, value, reward=None, trace=None):
         self.state = state
         self.action = action
         self.value = value
         self.reward = reward
+        self.trace = trace  # tracing.TraceRef when this step was sampled
 
 
 class ClientState:
     """Per-simulator state held by the master, keyed by ZMQ ident."""
 
-    __slots__ = ("memory", "ident", "score", "last_seen")
+    __slots__ = ("memory", "ident", "score", "last_seen", "pending_trace")
 
     def __init__(self, ident: bytes):
         self.ident = ident
         self.memory: List[TransitionExperience] = []
         self.score = 0.0
+        # a sampled message's TraceRef, parked between the receive loop
+        # and the predictor callback (protocol-serialized)
+        self.pending_trace = None
         # creation time, so a client that never sends again still ages out;
         # monotonic, so a wall-clock step cannot mass-expire the actors
         self.last_seen = time.monotonic()
@@ -84,6 +93,7 @@ class BlockStep:
 
     __slots__ = (
         "states", "actions", "values", "logps", "rewards", "dones", "recv_t",
+        "trace",
     )
 
     def __init__(self, states, actions, values, logps):
@@ -96,6 +106,9 @@ class BlockStep:
         # birth stamp of the env-step -> train-ingest latency series (0.0
         # when telemetry is off; the flush skips the observe on falsy)
         self.recv_t = time.monotonic() if telemetry.enabled() else 0.0
+        # tracing.TraceRef when this step was sampled (None otherwise: the
+        # flush sites branch on None, never on the sampling math)
+        self.trace = None
 
 
 class BlockStatesView:
@@ -210,7 +223,7 @@ class BlockClientState:
 
     __slots__ = (
         "ident", "n_envs", "scores", "steps", "start", "last_seen",
-        "ring", "ages", "last_step",
+        "ring", "ages", "last_step", "pending_trace",
     )
 
     def __init__(self, ident: bytes, n_envs: int):
@@ -225,6 +238,11 @@ class BlockClientState:
         # newest wire step seen; a step that goes BACKWARDS means the server
         # restarted under this ident (the master resets the incarnation)
         self.last_step = -1
+        # the current message's TraceRef, parked between the receive loop
+        # and the predictor callback that creates its BlockStep (the
+        # lockstep protocol admits no second message from this ident
+        # before that callback ran)
+        self.pending_trace = None
 
     def close(self) -> None:
         if self.ring is not None:
@@ -240,6 +258,10 @@ def default_pipes(name: str = "ba3c") -> tuple[str, str]:
 
 
 _spawn_ctx = mp.get_context("spawn")
+
+#: seconds a reply waits for its peer to become routable (a server's first
+#: message can beat its DEALER's handshake with the master's ROUTER)
+UNROUTABLE_GRACE_S = 5.0
 
 
 def _decode_action(raw: bytes, fallback, counter):
@@ -301,18 +323,22 @@ class SimulatorProcess(_spawn_ctx.Process):  # type: ignore[name-defined]
         reward, is_over = 0.0, False
         action = 0  # repeated on a corrupt reply (see _decode_action)
         step = 0
+        env_us = 0  # last env-step duration, shipped in the trace context
         try:
             while True:
                 msg = [ident, state, reward, is_over]
+                d = None
                 if (
                     telemetry.enabled()
                     and step and step % telemetry.PIGGYBACK_EVERY == 0
                 ):
-                    d = tracker.deltas()
-                    if d:
-                        msg.append(d)
+                    d = tracker.deltas() or None
+                # length-versioned tail: deltas 5th element, a sampled
+                # step's trace context 6th (the one layout: tracing.py)
+                tracing.stamp_wire_meta(msg, ident, step, d, env_us)
                 c2s.send(dumps(msg))
                 action = _decode_action(s2c.recv(), action, c_bad)
+                t_env = tracing.now_us() if tracing.enabled() else 0
                 reward, is_over = player.action(action)
                 c_steps.inc()
                 if is_over:
@@ -322,6 +348,8 @@ class SimulatorProcess(_spawn_ctx.Process):  # type: ignore[name-defined]
                 elif reward < 0:
                     c_rew_neg.inc(-reward)
                 state = player.current_state()
+                if t_env:
+                    env_us = tracing.now_us() - t_env
                 step += 1
         except (KeyboardInterrupt, zmq.ContextTerminated):
             pass
@@ -373,6 +401,10 @@ class SimulatorMaster(threading.Thread):
         # predecessor's identity; without handover libzmq rejects it and
         # the replies go nowhere
         self.s2c_socket.setsockopt(zmq.ROUTER_HANDOVER, 1)
+        # an unroutable reply raises instead of vanishing: a server sends
+        # its first message before the ROUTER has registered its DEALER,
+        # and a reply dropped then would park it forever (send_loop)
+        self.s2c_socket.setsockopt(zmq.ROUTER_MANDATORY, 1)
         self.s2c_socket.bind(pipe_s2c)
         self.s2c_socket.set_hwm(32)
 
@@ -406,6 +438,7 @@ class SimulatorMaster(threading.Thread):
         self._c_incarnation = tele.counter("incarnation_resets_total")
         self._c_blocked_puts = tele.counter("queue_blocked_puts_total")
         self._c_trace_ignored = tele.counter("trace_contexts_ignored_total")
+        self._c_unroutable = tele.counter("unroutable_replies_total")
         self._h_put_wait = tele.histogram("queue_put_wait_s", unit=1e-6)
         self._h_ingest = tele.histogram("e2e_ingest_latency_s", unit=1e-6)
         # rows answered with the uniform-random fallback after the
@@ -452,17 +485,44 @@ class SimulatorMaster(threading.Thread):
             ),
         )
 
+        def send(msg) -> bool:
+            """One reply; False while its peer is not routable yet. Never
+            blocks: a peer past its HWM drops the reply, as without
+            ROUTER_MANDATORY."""
+            try:
+                self.s2c_socket.send_multipart(msg, flags=zmq.NOBLOCK)
+            except zmq.ZMQError as e:
+                if e.errno == zmq.EHOSTUNREACH:
+                    return False
+                if e.errno != zmq.EAGAIN:
+                    raise
+            return True
+
         def send_loop():
             t = threading.current_thread()
             assert isinstance(t, StoppableThread)
+            # [deadline, msg] of replies whose peer is still connecting,
+            # retried for UNROUTABLE_GRACE_S, then dropped and counted (a
+            # peer that died after its message)
+            waiting: collections.deque = collections.deque()
             while not t.stopped():
-                msg = t.queue_get_stoppable(self.send_queue, timeout=0.2)
-                if msg is None:
-                    return
                 try:
-                    # ROUTER sends never block: an unroutable ident or a
-                    # peer past its HWM drops the message
-                    self.s2c_socket.send_multipart(msg)
+                    msg = self.send_queue.get(timeout=0.005 if waiting else 0.2)
+                except queue.Empty:
+                    msg = None
+                try:
+                    for _ in range(len(waiting)):
+                        deadline, old = waiting.popleft()
+                        if send(old):
+                            continue
+                        if time.monotonic() < deadline:
+                            waiting.append((deadline, old))
+                        else:
+                            self._c_unroutable.inc()
+                    if msg is not None and not send(msg):
+                        waiting.append(
+                            (time.monotonic() + UNROUTABLE_GRACE_S, msg)
+                        )
                 except zmq.ZMQError:
                     if t.stopped() or self._stop_evt.is_set():
                         return  # socket closed during teardown
@@ -520,12 +580,14 @@ class SimulatorMaster(threading.Thread):
             telemetry.apply_fleet_deltas(
                 ident, msg[4], role=self._fleet_tele_role
             )
-        if len(msg) > 5:
-            self._c_trace_ignored.inc()  # element 6: a trace context
         self._c_per_env_msgs.inc()
         client = self.clients[ident]
         client.ident = ident
         client.last_seen = time.monotonic()
+        if len(msg) > 5:
+            # element 6: a sampled trace context — park its ref for the
+            # predictor callback's transition record
+            client.pending_trace = self._recv_trace(ident, msg[5])
         self._on_message(ident, state, reward, is_over)
 
     def _prune_dead_actors(self) -> None:
@@ -558,6 +620,9 @@ class SimulatorMaster(threading.Thread):
                 ident,
                 self.actor_timeout,
             )
+        if dead:
+            # a prune is the postmortem moment: the evidence goes to disk
+            telemetry.dump("actor prune")
         for ident in dead:
             client = self.clients.pop(ident)
             if isinstance(client, BlockClientState):
@@ -622,8 +687,12 @@ class SimulatorMaster(threading.Thread):
                 telemetry.apply_fleet_deltas(
                     ident, meta[base_meta_len], role=self._fleet_tele_role
                 )
-            if len(meta) > base_meta_len + 1:
-                self._c_trace_ignored.inc()  # a sampled trace context
+            # a sampled step appends the trace context after a (possibly
+            # empty) deltas slot, so positions never shift
+            trace_elem = (
+                meta[base_meta_len + 1]
+                if len(meta) > base_meta_len + 1 else None
+            )
         except CorruptFrameError as e:
             self._c_corrupt.inc()
             telemetry.record("corrupt_frame", wire="block", error=str(e)[:200])
@@ -657,6 +726,8 @@ class SimulatorMaster(threading.Thread):
             self.clients[ident] = blk
         blk.last_seen = time.monotonic()
         blk.last_step = step
+        if trace_elem is not None:
+            blk.pending_trace = self._recv_trace(ident, trace_elem)
         dones = dones.astype(bool)
         try:
             if obs is not None:
@@ -675,6 +746,7 @@ class SimulatorMaster(threading.Thread):
             )
             del self.clients[ident]
             blk.close()
+            telemetry.dump("client drop")
 
     def min_ring_cap(self, n_envs: int, hist: int) -> float:
         """The block-shm ring capacity floor of this master's buffering
@@ -746,6 +818,15 @@ class SimulatorMaster(threading.Thread):
         hook, then request actions for the fresh states. Per-block order is
         serialized by the protocol, as on the per-env wire."""
         blk = self.clients[ident]
+        if blk.pending_trace is not None:
+            # flight events recorded while this sampled block is flushed
+            # and dispatched carry its trace id (telemetry/recorder.py)
+            with tracing.trace_scope(blk.pending_trace.trace_id):
+                self._dispatch_block(blk, states, rewards, dones, ident)
+        else:
+            self._dispatch_block(blk, states, rewards, dones, ident)
+
+    def _dispatch_block(self, blk, states, rewards, dones, ident) -> None:
         if blk.steps:
             last = blk.steps[-1]
             last.rewards = self._learn_reward_block(rewards)
@@ -822,6 +903,23 @@ class SimulatorMaster(threading.Thread):
             cb(a, 0.0, float(-np.log(A)))
 
         return shed
+
+    def _recv_trace(self, ident: bytes, trace_elem):
+        """Decode one received trace-context element: handshake the
+        sender's monotonic clock, record its ``env_step`` span (duration
+        shipped in the context) and the ``wire`` span, and return a
+        TraceRef for this master's own hops. None, counted on
+        ``trace_contexts_ignored_total``, for a context that does not
+        decode (wire input is untrusted) or with telemetry off."""
+        out = tracing.receive_context(
+            tracing.decode_context(trace_elem),
+            peer=repr(ident), role=self.tele_role, origin_always=True,
+        )
+        if out is None:
+            self._c_trace_ignored.inc()
+            return None
+        trace_id, parent = out
+        return tracing.TraceRef(trace_id, parent)
 
     def send_action(self, ident: bytes, action: int) -> None:
         self._put_stoppable(self.send_queue, [ident, dumps(int(action))])

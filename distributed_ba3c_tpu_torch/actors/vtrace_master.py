@@ -7,9 +7,11 @@ exactly ``unroll_len`` transitions that run straight across episode
 boundaries (``done`` flags mark them; the reverse scan zeroes the discount
 there), so every learner batch has one shape.
 
-Left out: ``record_values`` (the ``behavior_values`` key that only the pod
-master emits, ROADMAP queue A item 9) and the tracing plane's ``_trace``
-rider (item 5).
+A sampled step's trace (telemetry/tracing.py) records ``master_ingest``,
+``predict`` and ``unroll_flush`` here and rides the segment as a
+``"_trace"`` key, which the feed strips before collate. Left out:
+``record_values`` (the ``behavior_values`` key that only the pod master
+emits, ROADMAP queue A item 9).
 
 This module imports no torch; its predictor is duck-typed (``put_task``,
 ``put_block_task``, ``num_actions``).
@@ -29,6 +31,7 @@ from distributed_ba3c_tpu_torch.actors.simulator import (
     SegStates,
     SimulatorMaster,
 )
+from distributed_ba3c_tpu_torch.telemetry import tracing
 from distributed_ba3c_tpu_torch.utils.concurrency import FastQueue
 
 
@@ -37,15 +40,17 @@ class _Step:
     log-prob (and value), then the reward and done the next message
     brings."""
 
-    __slots__ = ("state", "action", "logp", "value", "reward", "done")
+    __slots__ = ("state", "action", "logp", "value", "reward", "done",
+                 "trace")
 
-    def __init__(self, state, action, logp, value=0.0):
+    def __init__(self, state, action, logp, value=0.0, trace=None):
         self.state = state
         self.action = action
         self.logp = logp
         self.value = value
         self.reward = 0.0
         self.done = False
+        self.trace = trace  # tracing.TraceRef when this step was sampled
 
 
 class VTraceSimulatorMaster(SimulatorMaster):
@@ -83,19 +88,32 @@ class VTraceSimulatorMaster(SimulatorMaster):
         self.score_queue = score_queue
 
     def _on_state(self, state: np.ndarray, ident: bytes) -> None:
+        # claim the receive loop's parked trace ref (None when unsampled)
+        client0 = self.clients[ident]
+        ref, client0.pending_trace = client0.pending_trace, None
+        if ref is not None:
+            ref = ref.hop("master_ingest", self.tele_role)
+
         def cb(action: int, value: float, logp: float):
             client = self.clients[ident]
             # safe cross-thread append: the simulator waits for this very
             # action, so the master cannot reslice client.memory until
             # send_action below releases it
-            client.memory.append(_Step(state, action, logp, value))
+            trace = ref.hop("predict", self.tele_role) if ref else None
+            client.memory.append(_Step(state, action, logp, value, trace))
             self.send_action(ident, action)
 
         # the shed fallback's uniform log-prob is the TRUE behaviour policy
-        # of that row, so V-trace stays exact
-        self.predictor.put_task(
-            state, cb, shed_callback=self._shed_fallback_row(cb)
-        )
+        # of that row, so V-trace stays exact. trace= only when sampled
+        if ref is None:
+            self.predictor.put_task(
+                state, cb, shed_callback=self._shed_fallback_row(cb)
+            )
+        else:
+            self.predictor.put_task(
+                state, cb, shed_callback=self._shed_fallback_row(cb),
+                trace=ref,
+            )
 
     def _on_datapoint(self, ident: bytes) -> None:
         pass  # segment emission happens in _on_message
@@ -141,6 +159,13 @@ class VTraceSimulatorMaster(SimulatorMaster):
             "behavior_log_probs": np.asarray([s.logp for s in seg], np.float32),
             "bootstrap_state": rest[0].state,
         }
+        # a sampled step inside this unroll hands its trace to the segment
+        # (claimed once; the feed strips it before collate)
+        for s in seg:
+            if s.trace is not None:
+                segment["_trace"] = s.trace.hop("unroll_flush", self.tele_role)
+                s.trace = None
+                break
         client.memory = rest
         # backpressure pauses actors, but stays shutdown-responsive
         self._put_stoppable(self.queue, segment)
@@ -149,17 +174,31 @@ class VTraceSimulatorMaster(SimulatorMaster):
     # -- block wire (one message per env server per step) ------------------
     def _on_block_state(self, states: np.ndarray, ident: bytes) -> None:
         blk = self.clients[ident]
+        # claim the receive loop's parked trace ref (None when unsampled)
+        ref, blk.pending_trace = blk.pending_trace, None
+        if ref is not None:
+            ref = ref.hop("master_ingest", self.tele_role)
 
         def cb(actions: np.ndarray, values: np.ndarray, logps: np.ndarray):
             # safe cross-thread append: the env server waits for this very
             # action block (protocol serialization, as on the per-env wire)
-            blk.steps.append(BlockStep(states, actions, values, logps))
+            st = BlockStep(states, actions, values, logps)
+            if ref is not None:
+                st.trace = ref.hop("predict", self.tele_role)
+            blk.steps.append(st)
             self.send_block_actions(ident, actions)
 
-        self.predictor.put_block_task(
-            states, cb,
-            shed_callback=self._shed_fallback_block(cb, len(states)),
-        )
+        if ref is None:
+            self.predictor.put_block_task(
+                states, cb,
+                shed_callback=self._shed_fallback_block(cb, len(states)),
+            )
+        else:
+            self.predictor.put_block_task(
+                states, cb,
+                shed_callback=self._shed_fallback_block(cb, len(states)),
+                trace=ref,
+            )
 
     def _on_block_flush(self, ident: bytes) -> None:
         """Per-env unroll emission over the block's shared step list (the
@@ -169,6 +208,8 @@ class VTraceSimulatorMaster(SimulatorMaster):
         blk: BlockClientState = self.clients[ident]
         T = self.unroll_len
         t_end = len(blk.steps)
+        # the per-segment trace scan runs only while sampling is armed
+        trace_on = tracing.enabled()
         for j in range(blk.n_envs):
             while t_end - blk.start[j] >= T + 1:
                 s = int(blk.start[j])
@@ -186,6 +227,17 @@ class VTraceSimulatorMaster(SimulatorMaster):
                     # the (T+1)-th step's state: bootstrap AND next head
                     "bootstrap_state": blk.steps[s + T].states[j],
                 }
+                if trace_on:
+                    # a sampled step's trace continues on the FIRST
+                    # segment that flushes it (one block lifetime = one
+                    # trace; the other B-1 envs share the step object)
+                    for st in seg:
+                        if st.trace is not None:
+                            segment["_trace"] = st.trace.hop(
+                                "unroll_flush", self.tele_role
+                            )
+                            st.trace = None
+                            break
                 blk.start[j] = s + T
                 if not self._put_stoppable(self.queue, segment):
                     return  # master stopped while the learner was backed up

@@ -29,13 +29,23 @@ game on CPU tensors (``envs/jaxenv/host_adapter.py``), and so do eval and
 play. The fused trainer runs the same games batched on the card. The JAX
 CLI's fleet supervision and autoscaling, ``--fleets``, ``--fleet_accum``,
 remote fleets (``--env zmq:``), ``gym:`` players, the serving plane's
-replicas, canary and shadow policies, int8 and the tracing plane are not
-ported yet (ROADMAP queue A)::
+replicas, canary and shadow policies and int8 are not ported yet (ROADMAP
+queue A)::
 
     python -m distributed_ba3c_tpu_torch --trainer tpu_fused_ba3c --env jax:coinrun
         --batch_size 20480 --rollout_len 20 --gamma 0.999 --eval_max_steps 2000
     python -m distributed_ba3c_tpu_torch --env jax:breakout --simulator_procs 16
     python -m distributed_ba3c_tpu_torch --task eval --env jax:coinrun --load <logdir>/checkpoints
+
+Every trainer takes the telemetry plane's flags: ``--telemetry_port``
+serves ``/metrics``, ``/json``, ``/flight`` and ``/trace`` while the run
+lasts, and ``--trace_sample N`` traces 1 in N block steps of the ZMQ
+trainers from the env step to the learner step. A run keeps
+``flight-<pid>.json`` (on SIGTERM, an actor prune or a client drop),
+TensorBoard events and ``channels.jsonl`` in its ``--logdir``::
+
+    python -m distributed_ba3c_tpu_torch --env cpp:pong --simulator_procs 64 \
+        --trace_sample 8 --telemetry_port 9100 --logdir runs/t
 """
 
 from __future__ import annotations
@@ -110,6 +120,24 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipe_s2c", default=None, help="master action-plane bind address (default: per-pid ipc://)")
     p.add_argument("--actor_timeout", type=float, default=120.0, help="seconds of actor silence before its state is dropped (0=off)")
     p.add_argument("--publish_every", type=int, default=1, help="params -> predictor every N learner steps")
+    p.add_argument(
+        "--telemetry_port", type=int, default=0,
+        help="serve the telemetry scrape endpoint on this port (0=off): "
+        "/metrics Prometheus text, /json raw snapshots, /flight the live "
+        "flight-recorder ring, /trace the span buffer",
+    )
+    p.add_argument(
+        "--trace_sample", type=int, default=0,
+        help="trace 1 in N block steps through the trace plane (0=off): "
+        "causal spans env_step -> learner_step, folded into "
+        "hop_<name>_s histograms and scraped at /trace (render with "
+        "scripts/trace_dump.py)",
+    )
+    p.add_argument(
+        "--profiler_port", type=int, default=0,
+        help="the JAX CLI's jax.profiler server; the port has none and "
+        "exits (capture with utils/profiling.py::capture_trace)",
+    )
     p.add_argument(
         "--ingest_staging", default="on", choices=["on", "off"],
         help="on: collate into pinned staging slots and issue the next "
@@ -430,8 +458,15 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
     )
 
     run_eval = args.nr_eval > 0
+    # the scrape endpoint starts and stops with the plane (it follows
+    # StartProcOrThread's start/stop/join/close protocol)
+    tele_servers = []
+    if args.telemetry_port:
+        from distributed_ba3c_tpu_torch.telemetry import TelemetryServer
+
+        tele_servers.append(TelemetryServer(args.telemetry_port))
     callbacks = [
-        StartProcOrThread(procs + [predictor, master, feed]),
+        StartProcOrThread(tele_servers + procs + [predictor, master, feed]),
         HumanHyperParamSetter("learning_rate", shared_dir=args.logdir),
         HumanHyperParamSetter("entropy_beta", shared_dir=args.logdir),
         StatPrinter(),
@@ -460,6 +495,10 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
             [(1, cfg.entropy_beta), (args.max_epoch, args.entropy_beta_final)],
             interp=args.anneal_beta or args.anneal,
         ))
+    from distributed_ba3c_tpu_torch.train.experiment import ExperimentLogger
+
+    # after StatPrinter: it reads the epoch's finalized record
+    callbacks.append(ExperimentLogger())
     trainer = Trainer(
         TrainLoopConfig(
             steps_per_epoch=args.steps_per_epoch,
@@ -536,6 +575,27 @@ def _run_play(args, cfg, model, params) -> int:
     return 0
 
 
+def _arm_telemetry(args) -> None:
+    """Flight dumps into the logdir and sampling armed, in this process and,
+    through the environment, in the children it spawns; a training run
+    also dumps the flight ring on SIGTERM."""
+    import os
+
+    from distributed_ba3c_tpu_torch import telemetry
+
+    telemetry.configure(args.logdir)
+    if args.logdir:
+        # spawned env servers and simulators read this at import
+        os.environ["BA3C_FLIGHT_DIR"] = args.logdir
+    if args.trace_sample > 0:
+        # here AND in the environment: the children read BA3C_TRACE at
+        # import (telemetry/tracing.py)
+        telemetry.tracing.set_sampling(args.trace_sample)
+        os.environ["BA3C_TRACE"] = str(args.trace_sample)
+    if args.task == "train":
+        telemetry.install_signal_dump()
+
+
 def main(argv: Optional[list] = None) -> int:
     import torch
 
@@ -545,10 +605,17 @@ def main(argv: Optional[list] = None) -> int:
     args = parser.parse_args(argv)
     if args.nr_eval is None:
         args.nr_eval = 8
+    if args.profiler_port:
+        raise SystemExit(
+            "--profiler_port: the port has no profiler server (the JAX CLI's "
+            "is jax.profiler's); capture a run's CPU and CUDA activity with "
+            "distributed_ba3c_tpu_torch.utils.profiling.capture_trace"
+        )
     if args.overlap and not (
         args.task == "train" and args.trainer == "tpu_fused_ba3c"
     ):
         parser.error("--overlap needs --task train --trainer tpu_fused_ba3c")
+    _arm_telemetry(args)
     if args.task == "train":
         if args.trainer != "tpu_fused_ba3c":
             return _run_sync(args, build_config(args))

@@ -5,8 +5,13 @@ Port of ``distributed_ba3c_tpu/data/dataflow.py:91-272`` (``_BatchFeed``,
 The reference's ``QueueInput``/``EnqueueThread`` job, moving batch
 assembly off the learner's thread, is done by the feed's batcher thread.
 ``FleetMergeFeed`` (``--fleets``) is not ported yet (ROADMAP queue A item
-8), nor the tracing rider the JAX feed strips. The staged collate writes
-into the pinned ring of ``data/staging.py``.
+8). The staged collate writes into the pinned ring of ``data/staging.py``.
+
+A sampled trace (telemetry/tracing.py) rides a feed item as a trailing
+``TraceRef`` (n-step datapoints) or a ``"_trace"`` key (V-trace segments);
+the batcher strips it (:func:`claim_trace`), records ``queue_wait``,
+``staging_wait`` (the staged path's acquire of a writable slot, a branch
+under ``queue_wait``) and ``collate``, and hands the ref on with the batch.
 """
 
 from __future__ import annotations
@@ -17,7 +22,21 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from distributed_ba3c_tpu_torch.telemetry import tracing
+from distributed_ba3c_tpu_torch.telemetry.tracing import TraceRef
 from distributed_ba3c_tpu_torch.utils.concurrency import StoppableThread
+
+
+def claim_trace(item):
+    """Strip a sampled trace rider off one feed item: a ``"_trace"`` key on
+    a segment dict (V-trace) or a trailing :class:`TraceRef` on a
+    ``[state, action, R]`` datapoint (n-step). Returns the ref or None;
+    the item is mutated, so collate never meets the ref."""
+    if isinstance(item, dict):
+        return item.pop("_trace", None)
+    if isinstance(item, list) and item and isinstance(item[-1], TraceRef):
+        return item.pop()
+    return None
 
 
 class _BatchFeed:
@@ -52,17 +71,27 @@ class _BatchFeed:
     def _collate(self, holder: List) -> Dict[str, np.ndarray]:
         raise NotImplementedError
 
-    def _collate_staged(self, holder: List, t: StoppableThread):
+    def _collate_staged(self, holder: List, t: StoppableThread, trace=None):
         """Collate into a staging slot (None only on stop: the ring's
-        backpressure pauses the batcher for as long as a consumer stalls)."""
+        backpressure pauses the batcher for as long as a consumer stalls).
+        ``trace`` (the batch's ref after ``queue_wait``) gets the acquire's
+        ``staging_wait`` span."""
         from distributed_ba3c_tpu_torch.data import staging as _staging
 
         spec_fn, into_fn = _staging.COLLATE_INTO[self._kind]
+        t0 = tracing.now_us() if trace is not None else 0
         slot = _staging.acquire_stoppable(
             self.staging, spec_fn(holder), t.stopped
         )
         if slot is None:
             return None
+        if trace is not None:
+            # the wait for a writable slot: a branch under queue_wait, as
+            # predict_dispatch is one under master_ingest
+            tracing.tracer().finish_span(
+                trace.trace_id, "staging_wait", "learner", t0,
+                parent_id=trace.parent_id,
+            )
         into_fn(holder, slot.buffers)
         self.staging.count_staged_copy()
         return self.staging.staged(slot)
@@ -82,20 +111,36 @@ class _BatchFeed:
         t = threading.current_thread()
         assert isinstance(t, StoppableThread)
         holder: List = []
+        trace = None  # sampled trace riding the batch being assembled
         while not t.stopped():
             item = t.queue_get_stoppable(self.in_queue, timeout=0.2)
             if item is None:
                 return  # stopped while the actor plane was quiet
+            ref = claim_trace(item)
+            if ref is not None:
+                # emit -> drain is the train-queue wait; one trace per
+                # batch (a second sampled item in the same holder is
+                # stripped, not attributed twice)
+                trace = trace or ref.hop("queue_wait", "learner")
             holder.append(item)
             if len(holder) < self.batch_size:
                 continue
             if self.staging is not None:
-                batch = self._collate_staged(holder, t)
+                batch = self._collate_staged(holder, t, trace)
                 if batch is None:
                     return  # stopped while every staging slot was fenced
             else:
                 batch = self._collate(holder)
             holder = []
+            if trace is not None:
+                ref = trace.hop("collate", "learner")
+                # a StagedBatch carries the ref as an attribute, a plain
+                # batch as a key the trainer pops before the copy
+                if self.staging is not None:
+                    batch.trace = ref
+                else:
+                    batch["_trace"] = ref
+                trace = None
             if not t.queue_put_stoppable(self._out, batch, timeout=0.2):
                 if self.staging is not None:
                     batch.release()  # slot back in rotation for the join

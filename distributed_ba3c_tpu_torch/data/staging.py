@@ -28,6 +28,12 @@ On the CPU nothing is pinned (``pin_memory`` needs CUDA): the "transfer" is
 a ``clone`` (a CPU ``.to`` would alias the slot) and the fence is open at
 once.
 
+A sampled trace rides a :class:`StagedBatch` as its ``trace`` attribute
+(a plain batch's ``"_trace"`` key): :class:`DeviceIngest` records
+``h2d_copy`` when it has issued the batch's copies on the copy stream (host
+time, behind the running step when a prefetch hid it) and ``ingest`` at
+the claim, and hands the ref to the trainer as ``"_trace"``.
+
 The pod learner's ``BlockStager`` is not ported yet (ROADMAP queue A item
 9).
 """
@@ -91,6 +97,7 @@ class StagedBatch(dict):
         super().__init__(buffers)
         self.slot = slot
         self.ring = ring
+        self.trace = None  # tracing.TraceRef of a sampled batch
 
     def release(self) -> None:
         self.ring.release(self.slot)
@@ -352,7 +359,7 @@ class DeviceIngest:
             torch.cuda.Stream(self.device) if self.device.type == "cuda"
             else None
         )
-        self._staged: Optional[Tuple[dict, Any]] = None
+        self._staged: Optional[Tuple[dict, Any, Any]] = None
         self.tele_role = tele_role
         tele = telemetry.registry(tele_role)
         self._c_prefetched = tele.counter("ingest_prefetched_total")
@@ -381,9 +388,13 @@ class DeviceIngest:
             return dict(batch.slot.tensors)
         return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
 
-    def _dispatch(self, batch) -> Tuple[dict, Any]:
+    def _dispatch(self, batch) -> Tuple[dict, Any, Any]:
         """Issue the H2D copies of one host batch; returns (device dict,
-        the copy's event or None)."""
+        the copy's event or None, the sampled trace or None)."""
+        if isinstance(batch, StagedBatch):
+            trace = batch.trace
+        else:
+            trace = batch.pop("_trace", None)
         host = self._host_tensors(batch)
         if self._copy_stream is None:
             # CPU: a copy, since a CPU .to() would alias the slot
@@ -400,7 +411,9 @@ class DeviceIngest:
                 event.record(self._copy_stream)
         if isinstance(batch, StagedBatch):
             batch.ring.dispatched(batch.slot, event)
-        return out, event
+        if trace is not None:
+            trace = trace.hop("h2d_copy", self.tele_role)
+        return out, event, trace
 
     def prefetch(self) -> bool:
         """Issue the NEXT batch's copies if the feed has one ready now.
@@ -421,13 +434,15 @@ class DeviceIngest:
 
     def next_batch(self, timeout: Optional[float] = None) -> dict:
         """Claim the current step's device batch (issuing its copies now
-        only when no prefetch landed), ordered before the learner's stream."""
+        only when no prefetch landed), ordered before the learner's stream.
+        A sampled trace's ``ingest`` hop is this claim, handed on as
+        ``"_trace"``."""
         t0 = time.monotonic()
         if self._staged is None:
             batch = self.feed.next_batch(timeout=timeout)
             self._staged = self._dispatch(batch)
             self._c_dispatch_now.inc()
-        out, event = self._staged
+        out, event, trace = self._staged
         self._staged = None
         if event is not None:
             stream = torch.cuda.current_stream(self.device)
@@ -435,4 +450,7 @@ class DeviceIngest:
             for v in out.values():
                 v.record_stream(stream)
         self._h_claim.observe(time.monotonic() - t0)
+        if trace is not None:
+            out = dict(out)
+            out["_trace"] = trace.hop("ingest", self.tele_role)
         return out

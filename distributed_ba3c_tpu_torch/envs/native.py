@@ -13,7 +13,9 @@ Three integration surfaces:
   lockstep and speaking the actor plane's ZMQ wire (``block-shm``,
   ``block`` or ``per-env``) to a master. Its wire is byte-compatible with
   the JAX package's server: either side's server feeds either side's
-  master. It never sends the tracing plane's context (not ported yet).
+  master. On a sampled step (``--trace_sample``, ``BA3C_TRACE`` in the
+  child) it appends the trace context after the deltas slot, as the JAX
+  server does, on all three wires.
 
 This module imports no torch: the env-server children import it.
 """
@@ -269,14 +271,19 @@ class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc
             self._run_per_env()
 
     def _tele_setup(self):
-        """Child-side telemetry: ``(count_step, piggyback, c_bad)``.
+        """Child-side telemetry: ``(count_step, piggyback, extend_meta,
+        c_bad)``.
 
         ``count_step(rew, dn)`` runs once per lockstep step;
         ``piggyback(step)`` returns the deltas dict to append to the wire
-        (or None, which keeps the message at its base length); ``c_bad``
-        is the ``corrupt_action_replies_total`` counter the decoders
-        tick."""
+        (or None, which keeps the message at its base length);
+        ``extend_meta(meta, step, env_us)`` appends the block header's
+        length-versioned tail: the deltas and, on a sampled step, the trace
+        context carrying this server's monotonic stamp and its last
+        ``env.step`` duration (``tracing.stamp_wire_meta``); ``c_bad`` is
+        the ``corrupt_action_replies_total`` counter the decoders tick."""
         from distributed_ba3c_tpu_torch import telemetry
+        from distributed_ba3c_tpu_torch.telemetry import tracing
 
         tele = telemetry.registry("simulator")
         c_steps = tele.counter("env_steps_total")
@@ -307,7 +314,12 @@ class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc
                 return None
             return tracker.deltas() or None
 
-        return count_step, piggyback, c_bad
+        ident = f"{self.ident_prefix}*block".encode()
+
+        def extend_meta(meta: list, step: int, env_us: int) -> None:
+            tracing.stamp_wire_meta(meta, ident, step, piggyback(step), env_us)
+
+        return count_step, piggyback, extend_meta, c_bad
 
     def _sockets(self, idents, hwm: int):
         """A PUSH to the master's c2s and one DEALER per ident on s2c."""
@@ -330,6 +342,7 @@ class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc
 
         import zmq
 
+        from distributed_ba3c_tpu_torch.telemetry import tracing
         from distributed_ba3c_tpu_torch.utils import shm as shm_mod
         from distributed_ba3c_tpu_torch.utils.serialize import pack_block
 
@@ -353,21 +366,23 @@ class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc
         dones = np.zeros(B, np.uint8)
         actions = np.zeros(B, np.int32)  # fallback on a corrupt reply
         ctx, push, (dealer,) = self._sockets([ident], 4)  # blocks are big
-        count_step, piggyback, c_bad = self._tele_setup()
+        count_step, _, extend_meta, c_bad = self._tele_setup()
         step = 0
+        env_us = 0  # last env.step duration, shipped in the trace context
         try:
             while True:
                 # the step's obs plane goes into the ring; the wire carries
                 # only the header + rewards + dones
                 ring.arr[step % cap] = obs
                 meta = [ident, step, B, ring_name, cap, H, W, hist]
-                tele = piggyback(step)
-                if tele is not None:
-                    meta.append(tele)  # length-versioned tail
+                extend_meta(meta, step, env_us)  # length-versioned tail
                 # lockstep protocol: park in send/recv awaiting the reply
                 push.send_multipart(pack_block(meta, [rewards, dones]), copy=False)
                 actions = _decode_actions(dealer.recv(), actions, c_bad)
+                t_env = tracing.now_us() if tracing.enabled() else 0
                 obs, rew, dn = env.step(actions)
+                if t_env:
+                    env_us = tracing.now_us() - t_env
                 rewards[:] = rew
                 dones[:] = dn
                 count_step(rew, dn)
@@ -383,6 +398,7 @@ class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc
     def _run_block(self) -> None:
         import zmq
 
+        from distributed_ba3c_tpu_torch.telemetry import tracing
         from distributed_ba3c_tpu_torch.utils.serialize import pack_block
 
         env = CppBatchedEnv(self.game, self.n_envs, seed=self.idx * 10_000)
@@ -397,14 +413,13 @@ class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc
         actions = np.zeros(B, np.int32)  # fallback on a corrupt reply
         ident = f"{self.ident_prefix}*block".encode()
         ctx, push, (dealer,) = self._sockets([ident], 4)  # blocks are big
-        count_step, piggyback, c_bad = self._tele_setup()
+        count_step, _, extend_meta, c_bad = self._tele_setup()
         step = 0
+        env_us = 0  # last env.step duration, shipped in the trace context
         try:
             while True:
                 meta = [ident, step, B]
-                tele = piggyback(step)
-                if tele is not None:
-                    meta.append(tele)
+                extend_meta(meta, step, env_us)  # length-versioned tail
                 # copy=False hands zmq the arrays' own buffers: safe because
                 # the master cannot reply before it has received the
                 # message, and the buffers change only after the reply
@@ -412,7 +427,10 @@ class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc
                     pack_block(meta, [stacks, rewards, dones]), copy=False
                 )
                 actions = _decode_actions(dealer.recv(), actions, c_bad)
+                t_env = tracing.now_us() if tracing.enabled() else 0
                 obs, rew, dn = env.step(actions)
+                if t_env:
+                    env_us = tracing.now_us() - t_env
                 rewards[:] = rew
                 dones[:] = dn
                 count_step(rew, dn)
@@ -434,6 +452,7 @@ class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc
     def _run_per_env(self) -> None:
         import zmq
 
+        from distributed_ba3c_tpu_torch.telemetry import tracing
         from distributed_ba3c_tpu_torch.utils.serialize import dumps
 
         env = CppBatchedEnv(self.game, self.n_envs, seed=self.idx * 10_000)
@@ -445,23 +464,30 @@ class CppEnvServerProcess(mp.get_context("spawn").Process):  # type: ignore[misc
         dones = np.zeros(B, bool)
         idents = [f"{self.ident_prefix}-{i}".encode() for i in range(B)]
         ctx, push, dealers = self._sockets(idents, B + 4)
-        count_step, piggyback, c_bad = self._tele_setup()
+        count_step, piggyback, _, c_bad = self._tele_setup()
         actions = np.zeros(B, np.int32)
         step = 0
+        env_us = 0  # last env.step duration, shipped in the trace context
         try:
             while True:
                 tele = piggyback(step)
-                # telemetry rides env 0's message as an optional 5th element
+                # telemetry rides env 0's message as an optional 5th
+                # element; on a sampled step every env's message carries
+                # its own trace context 6th (each env is a wire client)
                 for i in range(B):
                     msg = [idents[i], stacks[i], float(rewards[i]), bool(dones[i])]
-                    if i == 0 and tele is not None:
-                        msg.append(tele)
+                    tracing.stamp_wire_meta(
+                        msg, idents[i], step, tele if i == 0 else None, env_us
+                    )
                     push.send(dumps(msg))
                 for i in range(B):
                     actions[i] = _decode_action(
                         dealers[i].recv(), int(actions[i]), c_bad
                     )
+                t_env = tracing.now_us() if tracing.enabled() else 0
                 obs, rew, dn = env.step(actions)
+                if t_env:
+                    env_us = tracing.now_us() - t_env
                 rewards[:] = rew
                 dones[:] = dn.astype(bool)
                 count_step(rew, dn)

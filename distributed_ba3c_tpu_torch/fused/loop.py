@@ -28,7 +28,10 @@ swaps the step for ``fused/overlap.py``'s actor/learner pair on two CUDA
 streams (a checkpoint holds the train state only; a resumed overlap run
 re-primes the block in flight). It leaves out what the JAX loop adds for
 multi-host runs (collective saves, the watchdog, ``BA3C_PARAM_DIGEST``),
-int8, ``fleet_accum`` and the telemetry server (ROADMAP queue A).
+int8 and ``fleet_accum`` (ROADMAP queue A). The loop has no actor plane,
+but ``--telemetry_port`` serves its learner counters and flight ring while
+it runs, and each epoch's record also goes to TensorBoard events and to
+``<logdir>/channels.jsonl``.
 """
 
 from __future__ import annotations
@@ -436,20 +439,39 @@ def run_fused_training(args, cfg: BA3CConfig) -> int:
         f = (epoch - 1) / (args.max_epoch - 1)
         return anneal_interp(v0, v1, f, mode or args.anneal)
 
-    _fused_epoch_loop(
-        args, cfg, step, state, holder, ckpt, samples_per_iter, sched, evaluate
-    )
+    from distributed_ba3c_tpu_torch import telemetry
+    from distributed_ba3c_tpu_torch.train.experiment import ChannelWriter
+
+    tele_server = None
+    if getattr(args, "telemetry_port", 0):
+        tele_server = telemetry.TelemetryServer(args.telemetry_port)
+        tele_server.start()
+    channels = ChannelWriter(os.path.join(args.logdir, "channels.jsonl"))
+    try:
+        _fused_epoch_loop(
+            args, cfg, step, state, holder, ckpt, samples_per_iter, sched,
+            evaluate, channels,
+        )
+    finally:
+        if tele_server is not None:
+            tele_server.stop()
+            tele_server.join(timeout=2)
+            tele_server.close()
+        channels.close()
+        holder.close()
     return 0
 
 
 def _fused_epoch_loop(
-    args, cfg, step, state, holder, ckpt, samples_per_iter, sched, evaluate
+    args, cfg, step, state, holder, ckpt, samples_per_iter, sched, evaluate,
+    channels,
 ) -> None:
     import numpy as np
 
     from distributed_ba3c_tpu_torch import telemetry
     from distributed_ba3c_tpu_torch.train.callbacks import read_hyper_file
     from distributed_ba3c_tpu_torch.train.checkpoint import train_state_payload
+    from distributed_ba3c_tpu_torch.train.experiment import CHANNELS
     from distributed_ba3c_tpu_torch.utils import logger
 
     # a resume continues the schedule: the epoch counter derives from the
@@ -533,7 +555,10 @@ def _fused_epoch_loop(
             holder.add_stats({
                 f"tele/learner/{k}": v for k, v in tele.scalars().items()
             })
-        holder.finalize()
+        rec = holder.finalize()
+        for ch in CHANNELS:
+            if ch in rec:
+                channels.send(ch, rec["global_step"], rec[ch])
         logger.info(
             "epoch %d | env-steps/s %.0f | mean_score %.2f (%d eps) | eval %.2f | loss %.4f entropy %.3f",
             epoch, fps, mean_ret, int(metrics["episodes"]), eval_mean,

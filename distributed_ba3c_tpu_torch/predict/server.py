@@ -22,8 +22,16 @@ Port of ``distributed_ba3c_tpu/predict/server.py``. What it keeps:
 
 Params are a BA3CNet ``state_dict`` (name -> tensor); each policy's copy
 lives on the device, cast to ``rollout_dtype``. ``update_params`` swaps a
-policy's table entry atomically. The JAX package's int8 rung and its
-tracing spans are not ported yet.
+policy's table entry atomically.
+
+A task of a sampled trace (``trace=``, telemetry/tracing.py) records two
+spans under the predictor's role when its call is fetched:
+``predict_dispatch`` (admission to the call's issue on the stream, host
+time) and ``predict_fetch`` (issue to results on the host: on the card,
+the wait on the call's CUDA event, i.e. the device's time plus the
+device-to-host copy, and the pipeline's wait for the fetch). The
+untraced path reads no clock for them. The JAX package's int8 rung is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 from torch.func import functional_call
 
 from distributed_ba3c_tpu_torch import telemetry
+from distributed_ba3c_tpu_torch.telemetry import tracing
 from distributed_ba3c_tpu_torch.utils import logger
 from distributed_ba3c_tpu_torch.utils.concurrency import (
     FastQueue,
@@ -168,10 +177,10 @@ class _BlockTask:
     """One whole [B, ...] state block awaiting ONE batched callback."""
 
     __slots__ = ("states", "callback", "k", "deadline", "policy", "shed_cb",
-                 "t_admit")
+                 "t_admit", "trace")
 
     def __init__(self, states, callback, deadline=None, policy=None,
-                 shed_cb=None):
+                 shed_cb=None, trace=None):
         self.states = states
         self.callback = callback
         self.k = states.shape[0]
@@ -179,16 +188,17 @@ class _BlockTask:
         self.policy = policy
         self.shed_cb = shed_cb
         self.t_admit = 0.0
+        self.trace = trace  # tracing.TraceRef for a sampled block step
 
 
 class _RowTask:
     """One single state row; ``k`` is always 1."""
 
     __slots__ = ("states", "callback", "k", "deadline", "policy", "shed_cb",
-                 "t_admit")
+                 "t_admit", "trace")
 
     def __init__(self, state, callback, deadline=None, policy=None,
-                 shed_cb=None):
+                 shed_cb=None, trace=None):
         self.states = state
         self.callback = callback
         self.k = 1
@@ -196,16 +206,17 @@ class _RowTask:
         self.policy = policy
         self.shed_cb = shed_cb
         self.t_admit = 0.0
+        self.trace = trace  # tracing.TraceRef for a sampled row
 
 
 class _Inflight:
     """One dispatched-not-yet-fetched device call the scheduler tracks."""
 
     __slots__ = ("tasks", "n", "policy", "handle", "t_dispatch", "t_oldest",
-                 "shadow", "states", "lease")
+                 "shadow", "states", "t_dispatch_us", "lease")
 
     def __init__(self, tasks, n, policy, handle, t_dispatch, t_oldest=0.0,
-                 shadow=False, states=None, lease=None):
+                 shadow=False, states=None, t_dispatch_us=0, lease=None):
         self.tasks = tasks        # ordered singles-then-blocks; None = shadow
         self.n = n
         self.policy = policy
@@ -216,6 +227,9 @@ class _Inflight:
         self.t_oldest = t_oldest
         self.shadow = shadow
         self.states = states      # batch kept only for a shadow tap
+        # µs stamp of the issue for trace spans (0 when no task of the
+        # group is traced: the untraced path reads no clock for it)
+        self.t_dispatch_us = t_dispatch_us
         # _StageLease of the pooled staging buffer this call reads (None
         # for pass-through / sync-path batches); released at _complete
         self.lease = lease
@@ -508,6 +522,7 @@ class BatchedPredictor:
         deadline: Optional[float] = None,
         policy: Optional[str] = None,
         shed_callback: Optional[Callable[[ShedReject], None]] = None,
+        trace=None,
     ) -> bool:
         """Queue one state; ``callback(action, value, logp)`` fires when
         served — logp is log mu(action|state) under the sampling policy.
@@ -515,9 +530,11 @@ class BatchedPredictor:
         ``deadline`` is an absolute clock() time (defaulted from ``slo_ms``
         when set); a task that cannot make it is shed with a typed
         :class:`ShedReject` to ``shed_callback`` instead of served late.
+        ``trace`` is a sampled ``tracing.TraceRef``: the scheduler records
+        its dispatch and fetch spans under this predictor's role.
         Returns True if admitted."""
         return self._admit(
-            _RowTask(state, callback, deadline, policy, shed_callback)
+            _RowTask(state, callback, deadline, policy, shed_callback, trace)
         )
 
     def put_block_task(
@@ -528,12 +545,13 @@ class BatchedPredictor:
         deadline: Optional[float] = None,
         policy: Optional[str] = None,
         shed_callback: Optional[Callable[[ShedReject], None]] = None,
+        trace=None,
     ) -> bool:
         """Queue one [B, ...] state block; ``callback(actions[B], values[B],
         logps[B])`` fires ONCE when the block is served. The block lands in
         a pow-2 bucket as a unit; queued neighbors coalesce into one device
         call up to the bucket cap. Same deadline/shed semantics as
-        :meth:`put_task`."""
+        :meth:`put_task`; ``trace`` as there."""
         cap = _next_pow2(max(self._batch_size, 1))
         if states.shape[0] > cap:
             self._c_oversize.inc()
@@ -543,7 +561,8 @@ class BatchedPredictor:
                 "the env-server block size"
             )
         return self._admit(
-            _BlockTask(states, callback, deadline, policy, shed_callback)
+            _BlockTask(states, callback, deadline, policy, shed_callback,
+                       trace)
         )
 
     def predict_batch(
@@ -850,9 +869,15 @@ class BatchedPredictor:
         self._h_queue_wait.observe(max(0.0, now - t_oldest))
         ordered = singles + blocks  # callback offsets follow batch layout
         handle = self._dispatch(self._policies[policy], batch)
+        # µs stamp only when a sampled trace rides this group: the untraced
+        # path pays one attribute scan, never a clock read
+        t_us = (
+            tracing.now_us()
+            if any(tk.trace is not None for tk in ordered) else 0
+        )
         out = [_Inflight(
             ordered, weight, policy, handle, now,
-            t_oldest=t_oldest, lease=lease,
+            t_oldest=t_oldest, t_dispatch_us=t_us, lease=lease,
         )]
         shadow = self._shadow
         if shadow is not None:
@@ -900,6 +925,17 @@ class BatchedPredictor:
         actions, values, logps, _ = self._collect(inf.handle)
         self._release_lease(inf, synced=True)
         now = self._clock()
+        if inf.t_dispatch_us:
+            # sampled spans, after the fetch returned (on the card: after
+            # the wait on the call's event): admission -> issue, then
+            # issue -> results on the host, under THIS predictor's role
+            for tk in inf.tasks:
+                if tk.trace is not None:
+                    tk.trace.hop(
+                        "predict_dispatch", self.tele_role,
+                        t_end_us=inf.t_dispatch_us,
+                    ).hop("predict_fetch", self.tele_role)
+                    tk.trace = None  # one attribution per task
         # decaying-max serve-time estimate for the deadline gate: tracks
         # the worst recent dispatch->fetch (incl. pipeline wait) and decays
         # 10% per call so a one-off stall doesn't shed forever

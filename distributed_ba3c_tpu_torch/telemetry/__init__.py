@@ -1,11 +1,22 @@
-"""Telemetry for the serving and actor planes: per-role metric registries,
-the fleet wire and a flight-recorder ring.
+"""Fleet telemetry plane of the port: copies of the JAX package's
+``distributed_ba3c_tpu/telemetry`` modules, with the same names and layout.
 
-The metrics core is a copy of ``distributed_ba3c_tpu/telemetry/metrics.py``
-and the fleet wire (piggybacked counter deltas, :mod:`.wire`) of
-``telemetry/wire.py``. :func:`record` keeps the last events in memory, as
-the JAX package's flight recorder does; its postmortem dumps, exporters and
-tracing spans are not ported yet.
+1. **Metrics core** (:mod:`.metrics`): per-thread-sharded Counter, Gauge
+   and log2 Histogram, one :class:`Registry` per role (master, predictor,
+   learner, simulator, fleet); no lock on the write side.
+2. **Flight recorder** (:mod:`.recorder`): a ring of structured events,
+   dumped as ``flight-<pid>.json`` on SIGTERM, an actor prune or a client
+   drop.
+3. **Fleet aggregation** (:mod:`.wire`): env servers piggyback counter
+   deltas on the wire headers the plane already has.
+4. **Exporters** (:mod:`.exporters`): the ``--telemetry_port`` scrape
+   endpoint (``/metrics``, ``/json``, ``/flight``, ``/trace``) and the
+   stat.json/TensorBoard bridge.
+5. **Trace plane** (:mod:`.tracing`): sampled causal block-lifetime spans
+   (``--trace_sample``) folded into ``hop_<name>_s`` histograms.
+
+None of these modules imports torch: spawned env-server children import
+them.
 
     from distributed_ba3c_tpu_torch import telemetry
     telemetry.registry("predictor").counter("rows_total").inc(B)
@@ -13,9 +24,6 @@ tracing spans are not ported yet.
 """
 
 from __future__ import annotations
-
-import collections
-import time
 
 from distributed_ba3c_tpu_torch.telemetry.metrics import (  # noqa: F401
     Counter,
@@ -30,45 +38,31 @@ from distributed_ba3c_tpu_torch.telemetry.metrics import (  # noqa: F401
     reset_all,
     set_enabled,
 )
+from distributed_ba3c_tpu_torch.telemetry.recorder import (  # noqa: F401
+    FlightRecorder,
+    configure,
+    dump,
+    flight_recorder,
+    install_signal_dump,
+    record,
+)
+from distributed_ba3c_tpu_torch.telemetry.exporters import (  # noqa: F401
+    TelemetryServer,
+    export_scalars,
+    prometheus_text,
+)
 from distributed_ba3c_tpu_torch.telemetry.wire import (  # noqa: F401
     PIGGYBACK_EVERY,
     DeltaTracker,
     apply_fleet_deltas,
 )
-
-#: the recorder's ring: (time.monotonic(), kind, fields), oldest first
-_RING: collections.deque = collections.deque(maxlen=4096)
-
-
-def export_scalars(
-    roles=("master", "predictor", "learner", "fleet"), prefix: str = "tele/"
-) -> dict:
-    """Counters and gauges flattened to ``{"tele/<role>/<name>": value}``
-    for stat.json (histograms as _count/_sum); a role matches itself and
-    its dotted sub-roles (``master.f0``), as the JAX exporter's."""
-    out = {}
-    regs = all_registries()
-    for base in roles:
-        for role in sorted(regs):
-            if role != base and not role.startswith(f"{base}."):
-                continue
-            for name, v in regs[role].scalars().items():
-                out[f"{prefix}{role}/{name}"] = v
-    return out
-
-
-def record(kind: str, **fields) -> None:
-    """Append one structured event to the ring (a GIL-atomic deque append,
-    safe from any thread)."""
-    if enabled():
-        _RING.append((time.monotonic(), kind, fields))
+from distributed_ba3c_tpu_torch.telemetry import tracing  # noqa: F401
 
 
 def recorded(kind=None) -> list:
-    """The ring's events as ``{"t_monotonic", "kind", **fields}`` dicts,
-    oldest first; ``kind`` filters to one event kind."""
+    """The flight ring's events as ``{"t_monotonic", "kind", **fields}``
+    dicts, oldest first; ``kind`` filters to one event kind."""
     return [
-        {"t_monotonic": t, "kind": k, **f}
-        for t, k, f in list(_RING)
-        if kind is None or k == kind
+        ev for ev in flight_recorder().snapshot()
+        if kind is None or ev["kind"] == kind
     ]

@@ -1,7 +1,6 @@
 """Sharded metrics core: Counter / Gauge / log2-bucket Histogram + Registry.
 
-A copy of ``distributed_ba3c_tpu/telemetry/metrics.py`` without the
-tracing reset (the tracing plane is not ported yet).
+A copy of ``distributed_ba3c_tpu/telemetry/metrics.py``.
 
 Built for the 52.8k env-steps/s/host hot path (``runs/plane_bench_r6.json``):
 no locks on the write side, aggregation at read time. Each metric keeps one
@@ -288,7 +287,9 @@ def reset_all() -> None:
     with _registries_lock:
         for r in _registries.values():
             r._metrics = {}
-    # the fleet-aggregation sender table resets with the registries
-    from distributed_ba3c_tpu_torch.telemetry import wire
+    # the fleet-aggregation sender table resets with the registries, and
+    # so do the buffered spans and peer clock offsets (per-run evidence)
+    from distributed_ba3c_tpu_torch.telemetry import tracing, wire
 
     wire._FLEET_SEEN.clear()
+    tracing.reset()

@@ -1,9 +1,10 @@
 """Fleet aggregation: metric deltas piggybacked on the existing actor wire.
 
-A copy of ``distributed_ba3c_tpu/telemetry/wire.py``. The port's senders
-never append the trace context (a 6th per-env element, or a second tail
-element on a block header): the tracing plane is not ported yet, and the
-port's master counts such an element and ignores it.
+A copy of ``distributed_ba3c_tpu/telemetry/wire.py``. On a sampled step
+(``--trace_sample``) the senders append a trace context after the deltas
+slot, pinned then (possibly ``{}``): a 6th per-env element, or a second
+tail element on a block header. ``tracing.stamp_wire_meta`` is the one
+place that lays the tail out, for every sender of the port.
 
 Simulator servers live in their own processes; giving each a scrape port
 (or a new socket pair back to the master) would multiply the plane's file

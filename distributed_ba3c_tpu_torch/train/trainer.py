@@ -10,11 +10,16 @@ Port of ``distributed_ba3c_tpu/train/trainer.py:36-281`` (Tensorpack's
   (a device copy on the predictor's stream, ordered after the step and
   before the next one: Adam updates the params in place);
 - callbacks (``train/callbacks.py``) fire per step and per epoch;
-- feed starvation (the actor plane died) raises ``RuntimeError``.
+- feed starvation (the actor plane died) raises ``RuntimeError``;
+- a batch of a sampled trace (telemetry/tracing.py) runs its step under
+  ``utils/profiling.py::step_annotation`` (the range's name carries the
+  trace and span ids, so a ``torch.profiler`` capture lines up with
+  ``/trace``), and records ``ingest`` (unstaged feeds) and
+  ``learner_step``: the host-side dispatch of the update, as in JAX; the
+  card's side of the step is the annotated range of a capture.
 
 Left out: the multi-host ``LockstepWatchdog`` (a no-op on one process,
-ROADMAP queue A item 8), the trace plane's step annotations, the
-TensorBoard writer.
+ROADMAP queue A item 8).
 """
 
 from __future__ import annotations
@@ -81,6 +86,7 @@ class Trainer:
         self.last_mean_score: Optional[float] = None
         self.ckpt_manager = None  # set by ModelSaver
         self.metrics = None
+        self._pending_trace = None  # sampled trace between stage and step
         self._callbacks = Callbacks(callbacks)
 
         # the learner registry is the one account of training progress
@@ -120,28 +126,59 @@ class Trainer:
     # -- loop --------------------------------------------------------------
     def _next_device_batch(self) -> Dict[str, torch.Tensor]:
         batch = self.feed.next_batch(timeout=self.config.feed_timeout)
+        # a sampled trace rode the batch (claimed before the copy: the
+        # step must never meet the ref)
+        trace = batch.pop("_trace", None)
         if getattr(self.feed, "is_device_ingest", False):
-            return batch  # staged: already device tensors, stream-ordered
-        return {
+            # staged: already device tensors, stream-ordered; the pipeline
+            # recorded h2d_copy and ingest
+            self._pending_trace = trace
+            return batch
+        out = {
             k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
             for k, v in batch.items()
         }
+        if trace is not None:
+            # feed handoff -> copies issued (host-side ingest hop)
+            self._pending_trace = trace.hop("ingest", "learner")
+        return out
 
-    def run_step(self) -> None:
-        t0 = time.monotonic()
-        batch = self._next_device_batch()
-        self._h_feed_wait.observe(time.monotonic() - t0)
+    def _step(self, batch) -> None:
         self.state, self.metrics = self.step_fn(
             self.state,
             batch,
             self.hyperparams["entropy_beta"],
             self.hyperparams["learning_rate"],
         )
+
+    def run_step(self) -> None:
+        t0 = time.monotonic()
+        batch = self._next_device_batch()
+        self._h_feed_wait.observe(time.monotonic() - t0)
+        if self._pending_trace is not None:
+            from distributed_ba3c_tpu_torch.utils.profiling import (
+                step_annotation,
+            )
+
+            with step_annotation(
+                "train_step", self.global_step,
+                trace_id=self._pending_trace.trace_id,
+                span_id=self._pending_trace.parent_id,
+            ):
+                self._step(batch)
+        else:
+            self._step(batch)
         self.global_step += 1
         prefetch = getattr(self.feed, "prefetch", None)
         if prefetch is not None:
             # issue the NEXT batch's H2D behind this step (non-blocking)
             prefetch()
+        if self._pending_trace is not None:
+            # the host-side dispatch of the update; the card runs behind
+            self._pending_trace.hop(
+                "learner_step", "learner", tags={"step": self.global_step}
+            )
+            self._pending_trace = None
         # host-side time: feed wait + the step's dispatch (the card runs
         # behind; StatPrinter's sampled metric fetches sync it)
         self._h_step.observe(time.monotonic() - t0)
@@ -175,6 +212,8 @@ class Trainer:
             raise RuntimeError("train feed starved; actor plane dead") from None
         finally:
             self._callbacks.after_train()
+            # the TensorBoard writer's thread must not outlive the run
+            self.stat_holder.close()
 
     # -- resume ------------------------------------------------------------
     def restore(self, ckpt_dir: str, step: Optional[int] = None) -> None:

@@ -1,7 +1,8 @@
 """Stat aggregation: per-step counters -> per-epoch records -> stat.json.
 
-A copy of ``distributed_ba3c_tpu/utils/stats.py`` without its TensorBoard
-event writer (the port writes ``stat.json`` only).
+A copy of ``distributed_ba3c_tpu/utils/stats.py``: each epoch's record goes
+to ``stat.json`` and, as TensorBoard scalar events under the same names, to
+the log dir (``utils/tb_writer.py``).
 
 Reference equivalent: ``utils/stats.py`` ``StatCounter`` +
 ``callbacks/stats.py`` ``StatHolder`` (SURVEY.md §2.7 #22).
@@ -52,13 +53,19 @@ class StatHolder:
     """Holds the current epoch's scalar stats; finalizes to stat.json.
 
     ``stat.json`` is a JSON list of per-epoch dicts, the format tensorpack
-    tooling reads.
+    tooling reads. With a log dir (and ``tensorboard``), each record is also
+    written as scalar events at its ``global_step``.
     """
 
     def __init__(self, log_dir: Optional[str] = None):
         self.log_dir = log_dir
         self.stat_now: Dict[str, float] = {}
         self.stat_history: List[Dict[str, float]] = []
+        self._tb = None
+        if log_dir is not None:
+            from distributed_ba3c_tpu_torch.utils.tb_writer import TBScalarWriter
+
+            self._tb = TBScalarWriter(log_dir)
         if log_dir is not None:
             os.makedirs(log_dir, exist_ok=True)
             self._path = os.path.join(log_dir, "stat.json")
@@ -80,7 +87,8 @@ class StatHolder:
             self.stat_now[name] = float(v)
 
     def finalize(self) -> Dict[str, float]:
-        """Close the epoch: append the record and rewrite stat.json."""
+        """Close the epoch: append the record, rewrite stat.json and write
+        the TensorBoard events."""
         record = dict(self.stat_now)
         self.stat_history.append(record)
         if self._path is not None:
@@ -88,5 +96,13 @@ class StatHolder:
             with open(tmp, "w") as f:
                 json.dump(self.stat_history, f)
             os.replace(tmp, self._path)
+        if self._tb is not None:
+            step = int(record.get("global_step", record.get("epoch", 0)))
+            self._tb.add_scalars(record, step)
+            self._tb.flush()
         self.stat_now = {}
         return record
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()

@@ -189,13 +189,47 @@ def test_corrupt_and_junk_frames_are_counted_not_fatal(tmp_path):
         m._on_per_env_frame(F(raw))
         m._on_per_env_frame(F(b"\x01\x02"))
         m._on_block_frames([F(b"junk"), F(b""), F(b"")])
-        # a 6th per-env element (a trace context) is counted and ignored
+        # a 6th per-env element that does not decode as a trace context is
+        # counted and ignored
         m._on_per_env_frame(F(dumps([b"y", np.zeros(3, np.uint8), 0.0, False, {}, [1, 2]])))
         assert reg.counter("corrupt_frames_total").value() == 1
         assert reg.counter("blocks_rejected_total").value() == 2
         assert reg.counter("trace_contexts_ignored_total").value() == 1
         assert b"y" in m.clients and len(m.clients[b"y"].memory) == 1
     finally:
+        m.close()
+
+
+def test_a_reply_waits_for_its_peer_to_connect(tmp_path, monkeypatch):
+    """A server's first message can beat its DEALER's handshake with the
+    master's ROUTER: the reply waits for the peer instead of vanishing (a
+    lockstep server would park forever), and one for a peer that never
+    connects is dropped after the grace and counted."""
+    import zmq
+
+    from distributed_ba3c_tpu_torch.utils.serialize import loads
+
+    monkeypatch.setattr(psim, "UNROUTABLE_GRACE_S", 1.0)
+    m = pmaster.BA3CSimulatorMaster(f"ipc://{tmp_path}/c", f"ipc://{tmp_path}/s",
+                                    _DetPredictor(), tele_role="master.late")
+    ctx = zmq.Context()
+    dealer = ctx.socket(zmq.DEALER)
+    try:
+        m.send_action(b"late", 3)
+        m.send_action(b"never", 1)
+        time.sleep(0.3)  # both queued, neither peer routable
+        dealer.setsockopt(zmq.IDENTITY, b"late")
+        dealer.connect(f"ipc://{tmp_path}/s")
+        assert dealer.poll(5000), "the reply was dropped"
+        assert loads(dealer.recv()) == 3
+        deadline = time.monotonic() + 10
+        while m._c_unroutable.value() < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        assert m._c_unroutable.value() == 1
+    finally:
+        dealer.close(0)
+        ctx.term()
         m.close()
 
 
@@ -333,7 +367,10 @@ def test_plane_modules_import_no_torch():
             "distributed_ba3c_tpu_torch.actors.vtrace_master, "
             "distributed_ba3c_tpu_torch.envs.native, "
             "distributed_ba3c_tpu_torch.utils.shm, "
-            "distributed_ba3c_tpu_torch.telemetry.wire\n"
+            "distributed_ba3c_tpu_torch.telemetry.wire, "
+            "distributed_ba3c_tpu_torch.telemetry.tracing, "
+            "distributed_ba3c_tpu_torch.telemetry.recorder, "
+            "distributed_ba3c_tpu_torch.telemetry.exporters\n"
             "assert 'torch' not in sys.modules, 'torch'\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=120, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
