@@ -115,6 +115,100 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: the hand-written kernels' symbols, as a capture names them (mangled or
+#: not): a kernel event is filed under the first that its name contains
+OWN_KERNELS = ("wgrad_reduce_kernel", "wgrad_kernel", "dgrad_kernel", "conv_block_kernel")
+
+
+def kernel_name(name: str) -> str:
+    """A kernel event's name, short: the hand-written kernel's symbol, or a
+    library kernel's name cut before its template and argument lists."""
+    own = next((k for k in OWN_KERNELS if k in name), None)
+    return own or name.split("(")[0].split("<")[0].strip()[:80]
+
+
+def device_times(fns: dict, iters: int = 5, warmup: int = 2, attempts: int = 4) -> dict:
+    """Each function's device time from one ``torch.profiler`` capture (the
+    CUPTI path ``[trace]`` uses): ``{name: {"device_ms": kernel time per
+    call, "by_kernel": {kernel: ms per call}}}``. After a warmup, and an
+    untimed first range in the capture (CUPTI can drop a capture's first
+    kernels), each function runs ``iters`` times inside its own
+    ``record_function`` range, the queue drained between ranges; a kernel
+    counts towards the range its launch call lies in, or, without a launch
+    record, the range that began last before it ran. Host issue is left
+    out, which CUDA events around the calls (:func:`time_ms`) include when
+    the host is slower than the card. A capture in which a function shows
+    no kernel is taken again, up to ``attempts`` captures; a function still
+    without one gets ``device_ms`` None, logged."""
+    out = None
+    for attempt in range(attempts):
+        out = _device_times_once(fns, iters, warmup)
+        empty = [name for name, v in out.items() if not v["by_kernel"]]
+        if not empty:
+            return out
+        log(f"[device-times] no kernel event in capture {attempt + 1} for {empty}")
+    for v in out.values():
+        if not v["by_kernel"]:
+            v["device_ms"] = None
+    return out
+
+
+def _device_times_once(fns: dict, iters: int, warmup: int) -> dict:
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("device_times:"):  # untimed
+            for fn in fns.values():
+                fn()
+        torch.cuda.synchronize()
+        for name, fn in fns.items():
+            with record_function(f"device_times:{name}"):
+                for _ in range(iters):
+                    fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"].split(":", 1)[1]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and str(e.get("name", "")).startswith("device_times:"))
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    out = {name: {"device_ms": 0.0, "by_kernel": {}} for name in fns}
+    for e in events:
+        if e.get("cat") != "kernel" or e.get("ph") != "X":
+            continue
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        if t is not None:  # the range its launch call lies in
+            owner = next((r for lo, hi, r in ranges if lo <= t <= hi), None)
+        else:  # no launch record (CUPTI drops some): the queue is drained
+            # between ranges, so the range that began last before it ran
+            owner = next((r for lo, _, r in reversed(ranges) if lo <= e["ts"]), None)
+        if owner not in out:  # outside the ranges, or the untimed one
+            continue
+        ms = e["dur"] / 1e3 / iters
+        by = out[owner]["by_kernel"]
+        k = kernel_name(e.get("name", ""))
+        by[k] = by.get(k, 0.0) + ms
+        out[owner]["device_ms"] += ms
+    return out
+
+
+def _ms(v) -> str:
+    """A time for a log line: ms to 4 places, or "n/a" where none was taken."""
+    return "n/a" if v is None else f"{v:.4f}"
+
+
 def bf16_ulp_share(got, ref) -> float:
     """Share of elements whose difference is at most one bf16 ulp of the
     larger magnitude of the two."""
@@ -378,7 +472,8 @@ def phase_bwd_kernels(dev, batches=BWD_BATCHES):
     of the plain VJP must be within REL_TOL of the plain pieces on the
     kernel's own routing (dgrad_plain and wgrad_plain of its dz): under
     flax's rule a flipped relu gate moves a whole cotangent, under
-    reference_block's half of one. Returns each
+    reference_block's half of one. At each batch also block 0's wgrad on
+    uint8 frames (:func:`bwd_uint8_wgrad`). Returns each
     kernel's largest max|d| against its plain version (the route's: in
     dz)."""
     import torch
@@ -456,31 +551,97 @@ def phase_bwd_kernels(dev, batches=BWD_BATCHES):
                 if not ok:
                     raise AssertionError(f"conv_block backward disagrees on block{i} B={nb} {kind}")
                 del grads, dz, dz_ref, again, first
+        bwd_uint8_wgrad(dev, nb, worst)
     set_launch_counts(saved)  # comparison launches do not count
     return worst
 
 
-def phase_bwd_times(dev, nb: int) -> dict:
-    """Each backward kernel's time per block at batch ``nb`` on random
-    inputs: {block: {kernel: ms}}."""
+def bwd_uint8_wgrad(dev, nb: int, worst: dict) -> None:
+    """Block 0's wgrad on uint8 frames (the kernel scales them by bf16(1/255)
+    as it lays its halo out) against its plain version on the route's own
+    dz, within REL_TOL, and a rerun bit-equal."""
+    import torch
+
     from distributed_ba3c_tpu_torch.ops.conv_block import (
+        ba3c_specs,
+        conv_block_route,
+        conv_block_wgrad,
+        flax_block,
+        wgrad_plain,
+    )
+
+    s = ba3c_specs()[0]
+    g = torch.Generator().manual_seed(nb)
+    x = torch.randint(0, 256, (nb, s.H, s.W * s.Ci), generator=g, dtype=torch.uint8).to(dev)
+    _, w, b, gy = bwd_inputs(s, nb, "random", dev, seed=nb)
+    dz, dbpart = conv_block_route(x, w, b, gy, s, flax_block)
+    dw, db = conv_block_wgrad(x, dz, dbpart, s)
+    again = conv_block_wgrad(x, dz, dbpart, s)
+    dw_ref, db_ref = wgrad_plain(x, dz, dbpart, s)
+    torch.cuda.synchronize()
+    rel = {"wgrad dw": _rel(dw, dw_ref), "wgrad db": _rel(db, db_ref)}
+    equal = torch.equal(dw, again[0]) and torch.equal(db, again[1])
+    ok = all(v < REL_TOL for v in rel.values()) and equal
+    worst["wgrad"] = max(worst["wgrad"], _abs(dw, dw_ref), _abs(db, db_ref))
+    log(f"[bwd] block0_uint8 (flax_block) B={nb} random: "
+        + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
+        + (" ok" if ok else " FAIL" + ("" if equal else " rerun not bit-equal")))
+    if not ok:
+        raise AssertionError(f"block 0's uint8 wgrad disagrees at B={nb}")
+
+
+def bwd_calls(x, w, b, gy, s, plain, x_grad: bool):
+    """One block's backward pieces as timed calls on the same inputs: the
+    route, wgrad and (where x takes a gradient) dgrad wrappers, and the
+    library's call of the same functions (``aten.convolution_backward``
+    for the weight and bias gradient and for the input gradient; the
+    route has none). The library's inputs are laid out outside the calls:
+    NCHW views of the channels-last data, x padded SAME and cut to dz's
+    grid."""
+    import torch
+
+    from distributed_ba3c_tpu_torch.ops.conv_block import (
+        _conv_input,
         conv_block_dgrad,
         conv_block_route,
         conv_block_wgrad,
     )
 
+    dz, dbpart = conv_block_route(x, w, b, gy, s, plain)
+    Hd, Wd = dz.shape[1:3]
+    x_nchw = _conv_input(x, s, torch.bfloat16)[:, :, : Hd + s.kh - 1, : Wd + s.kw - 1]
+    x_nchw = x_nchw.contiguous(memory_format=torch.channels_last)
+    dz_nchw = dz.permute(0, 3, 1, 2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+    def library_bwd(mask):
+        return torch.ops.aten.convolution_backward(
+            dz_nchw, x_nchw, w_oihw, [s.Co], [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
+
+    calls = {"route": lambda: conv_block_route(x, w, b, gy, s, plain),
+             "wgrad": lambda: conv_block_wgrad(x, dz, dbpart, s),
+             "library wgrad": lambda: library_bwd([False, True, True])}
+    if x_grad:
+        calls["dgrad"] = lambda: conv_block_dgrad(dz, w, s)
+        calls["library dgrad"] = lambda: library_bwd([True, False, False])
+    return dz, dbpart, calls
+
+
+def phase_bwd_times(dev, nb: int) -> dict:
+    """Each backward kernel's time per block at batch ``nb`` on random
+    inputs, and the library's for the same function: {block: {call:
+    {"ms": CUDA events around the wrapper, "device_ms": the profiler's
+    kernel time, "by_kernel": ...}}}."""
     saved = launch_counts()
     out = {}
     for i, s, plain, x_grad in vjp_cases():
         x, w, b, gy = bwd_inputs(s, nb, "random", dev, seed=i)
-        dz, dbpart = conv_block_route(x, w, b, gy, s, plain)
-        ms = {"route": time_ms(lambda: conv_block_route(x, w, b, gy, s, plain), iters=10),
-              "wgrad": time_ms(lambda: conv_block_wgrad(x, dz, dbpart, s), iters=10)}
-        if x_grad:
-            ms["dgrad"] = time_ms(lambda: conv_block_dgrad(dz, w, s), iters=10)
-        out[f"block{i}"] = ms
-        log(f"[kernel-times] block{i} backward at B={nb}: "
-            + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+        _, _, calls = bwd_calls(x, w, b, gy, s, plain, x_grad)
+        dev_t = device_times(calls)
+        out[f"block{i}"] = {k: {"ms": time_ms(fn, iters=10), **dev_t[k]} for k, fn in calls.items()}
+        log(f"[kernel-times] block{i} backward at B={nb}: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (device {_ms(v['device_ms'])})"
+            for k, v in out[f"block{i}"].items()))
     set_launch_counts(saved)
     return out
 
@@ -744,11 +905,8 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
     import torch.nn.functional as F
 
     from distributed_ba3c_tpu_torch.ops.conv_block import (
-        _conv_input,
         conv_block,
-        conv_block_dgrad,
         conv_block_route,
-        conv_block_wgrad,
         dgrad_plain,
         route_plain,
         wgrad_plain,
@@ -839,51 +997,53 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
         log(f"[vjp] block{i}: fwd+bwd kernel path {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"library {row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
 
-        # each backward kernel alone, on this block's inputs
-        dz, dbpart = conv_block_route(x, w, b, gy, s, plain)
-        Hd, Wd = dz.shape[1:3]
-        # the library's inputs, laid out outside the timed call: NCHW views
-        # of the channels-last data, x padded SAME and cut to dz's grid
-        x_nchw = _conv_input(x, s, torch.bfloat16)[:, :, : Hd + s.kh - 1, : Wd + s.kw - 1]
-        x_nchw = x_nchw.contiguous(memory_format=torch.channels_last)
-        dz_nchw = dz.permute(0, 3, 1, 2)
-        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-
-        def library_bwd(mask):
-            return torch.ops.aten.convolution_backward(
-                dz_nchw, x_nchw, w_oihw, [s.Co], [1, 1], [0, 0], [1, 1], False, [0, 0], 1, mask)
-
+        # each backward kernel alone, on this block's inputs; "ms" is CUDA
+        # events around the wrapper (host issue included where the host is
+        # slower than the card), "device_ms" the profiler's kernel time
+        dz, dbpart, calls = bwd_calls(x, w, b, gy, s, plain, x_grad)
+        dev_t = device_times(calls)
         n_x, n_dz = x.numel() * x.element_size(), dz.numel() * 2
         ops = nb * needed_flops(s)
-        kern = {
-            "route": {
-                "ms": time_ms(lambda: conv_block_route(x, w, b, gy, s, plain), iters=5, warmup=2),
-                "plain_ms": time_ms(lambda: route_plain(x, w, b, gy, s, plain), iters=5, warmup=2),
-                "library_ms": None,
-                **bound(n_x + 2 * (w.numel() + b.numel() + gy.numel()) + n_dz, ops),
-            },
-            "wgrad": {
-                "ms": time_ms(lambda: conv_block_wgrad(x, dz, dbpart, s), iters=5, warmup=2),
-                "plain_ms": time_ms(lambda: wgrad_plain(x, dz, dbpart, s), iters=5, warmup=2),
-                "library_ms": time_ms(lambda: library_bwd([False, True, True]), iters=5, warmup=2),
-                **bound(n_x + n_dz + 2 * (w.numel() + b.numel()), ops),
-            },
-        }
-        if x_grad:
-            kern["dgrad"] = {
-                "ms": time_ms(lambda: conv_block_dgrad(dz, w, s), iters=5, warmup=2),
-                "plain_ms": time_ms(lambda: dgrad_plain(dz, w, s), iters=5, warmup=2),
-                "library_ms": time_ms(lambda: library_bwd([True, False, False]), iters=5, warmup=2),
-                **bound(n_dz + 2 * w.numel() + n_x, ops),
+        plains = {"route": lambda: route_plain(x, w, b, gy, s, plain),
+                  "wgrad": lambda: wgrad_plain(x, dz, dbpart, s),
+                  "dgrad": lambda: dgrad_plain(dz, w, s)}
+        n_bytes = {"route": n_x + 2 * (w.numel() + b.numel() + gy.numel()) + n_dz,
+                   "wgrad": n_x + n_dz + 2 * (w.numel() + b.numel()),
+                   "dgrad": n_dz + 2 * w.numel() + n_x}
+        kern = {}
+        for k in [k for k in ("route", "dgrad", "wgrad") if k in calls]:
+            lib = calls.get(f"library {k}")
+            kern[k] = {
+                "ms": time_ms(calls[k], iters=5, warmup=2),
+                "device_ms": dev_t[k]["device_ms"],
+                "device_by_kernel": dev_t[k]["by_kernel"],
+                "plain_ms": time_ms(plains[k], iters=5, warmup=2),
+                "library_ms": None if lib is None else time_ms(lib, iters=5, warmup=2),
+                "library_device_ms": None if lib is None else dev_t[f"library {k}"]["device_ms"],
+                "library_device_by_kernel": (None if lib is None
+                                             else dev_t[f"library {k}"]["by_kernel"]),
+                **bound(n_bytes[k], ops),
             }
         row["bwd_kernels"] = kern
+
+        def lib_text(v):
+            if v["library_ms"] is None:
+                return "library -"
+            return (f"library {v['library_ms']:.4f}, device {_ms(v['library_device_ms'])}: "
+                    + ", ".join(f"{n} {t:.4f}" for n, t in v["library_device_by_kernel"].items()))
+
+        def share(v):
+            if v["device_ms"] is None:
+                return "device time not measured"
+            return f"{100 * v['bound_ms'] / v['device_ms']:.1f}% of it on device time"
+
         log(f"[vjp] block{i} backward kernels at B={nb}: " + "; ".join(
-            f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library "
-            f"{'-' if v['library_ms'] is None else format(v['library_ms'], '.4f')}, bound "
-            f"{v['bound_ms']:.4f} {v['bound_by']}, {100 * v['bound_ms'] / v['ms']:.1f}% of it)"
-            for k, v in kern.items()))
+            f"{k} {v['ms']:.4f} ms, device {_ms(v['device_ms'])} ("
+            + ", ".join(f"{n} {t:.4f}" for n, t in v["device_by_kernel"].items())
+            + f"; plain {v['plain_ms']:.4f}, {lib_text(v)}, bound "
+            f"{v['bound_ms']:.4f} {v['bound_by']}, {share(v)})" for k, v in kern.items()))
         rows.append(row)
-        del dz, dbpart, x_nchw, dz_nchw
+        del dz, dbpart, calls
         x = ref[0]  # the next block takes this block's output
     set_launch_counts(saved)  # comparison launches do not count
     return rows
@@ -2221,13 +2381,18 @@ HOP_ROLE = {"env_step": "master", "wire": "master", "master_ingest": "master",
 TRACE_BRANCHES = {"predict_dispatch": "master_ingest", "predict_fetch": "predict_dispatch",
                   "staging_wait": "queue_wait"}
 #: the hand-written kernels as a capture names them, and the wrappers
-#: whose launches each symbol counts (the forward, route and dgrad run the
-#: one conv_block_kernel mainloop with three epilogues; a wgrad launch is
-#: its wgrad_kernel and then its wgrad_reduce_kernel)
+#: whose launches each symbol counts (the forward and the route run the one
+#: conv_block_kernel mainloop with two epilogues; a dgrad launch is its
+#: dgrad_kernel; a wgrad launch is its wgrad_kernel and then its
+#: wgrad_reduce_kernel)
 KERNEL_SYMBOLS = {"wgrad_reduce_kernel": ("conv_block_wgrad",),
                   "wgrad_kernel": ("conv_block_wgrad",),
-                  "conv_block_kernel": ("conv_block_fwd", "conv_block_route",
-                                        "conv_block_dgrad")}
+                  "dgrad_kernel": ("conv_block_dgrad",),
+                  "conv_block_kernel": ("conv_block_fwd", "conv_block_route")}
+#: the capture's kernel events a sync learner step (B=128): 4 forwards and
+#: 4 routes, 3 dgrads, 4 wgrads of two kernels each
+STEP_KERNEL_EVENTS = {"wgrad_reduce_kernel": 4, "wgrad_kernel": 4, "dgrad_kernel": 3,
+                      "conv_block_kernel": 8}
 
 
 def trace_chain(flush: str) -> tuple:
@@ -2406,8 +2571,18 @@ def trace_capture(dev, states) -> dict:
     torch.cuda.synchronize()
     tracing.reset()
     set_launch_counts({k: 0 for k in COUNTED})
+    def steps():
+        # CUPTI can drop the first kernels of a capture (seen after other
+        # captures in the process): plain PyTorch kernels first, whose names
+        # match no KERNEL_SYMBOLS, so the two annotated steps are whole
+        warm = torch.ones((512, 512), device=dev)
+        for _ in range(32):
+            warm = torch.tanh(warm @ warm)
+        torch.cuda.synchronize()
+        return [trainer.run_step() for _ in range(2)]
+
     with tempfile.TemporaryDirectory() as d:
-        profiling.capture_trace(d, 0, lambda: [trainer.run_step() for _ in range(2)])
+        profiling.capture_trace(d, 0, steps)
         launches = launch_counts()
         with open(os.path.join(d, profiling.TRACE_FILE)) as f:
             events = json.load(f)["traceEvents"]
@@ -2455,10 +2630,9 @@ def trace_capture(dev, states) -> dict:
     log(f"{tag} capture: annotated ranges {[e['name'] for e in ranges]}; kernel events per "
         f"step {per_step} (the launch counters: {launches}, so {want} a step); kernels "
         f"placed by {how}; event categories {cats}")
-    if any(n != want for n in per_step) or want != {"wgrad_reduce_kernel": 4, "wgrad_kernel": 4,
-                                                    "conv_block_kernel": 11}:
+    if any(n != want for n in per_step) or want != STEP_KERNEL_EVENTS:
         raise AssertionError(f"{tag} the capture's kernel events {per_step} do not match the "
-                             f"launch counters ({want} a step, 11/4/4 expected)")
+                             f"launch counters ({want} a step, {STEP_KERNEL_EVENTS} expected)")
     return {"per_step": per_step, "launches": launches, "placed_by": how,
             "ranges": [e["name"] for e in ranges]}
 
@@ -2926,6 +3100,8 @@ def main(argv=None) -> int:
     for name in ("route", "dgrad", "wgrad"):
         parts = [r["bwd_kernels"][name] for r in vjp_rows if name in r["bwd_kernels"]]
         lib = [p["library_ms"] for p in parts]
+        dev_ms = [p["device_ms"] for p in parts]
+        lib_dev = [p["library_device_ms"] for p in parts]
         kernels.append({
             "name": f"conv_block_{name}",
             "route": "cuda",
@@ -2938,8 +3114,12 @@ def main(argv=None) -> int:
             "plain_ms": sum(p["plain_ms"] for p in parts),
             **summed_bound(parts),
             "library_ms": None if None in lib else sum(lib),
+            "device_ms": None if None in dev_ms else sum(dev_ms),
+            "library_device_ms": None if None in lib_dev else sum(lib_dev),
             "shapes": (f"the {len(parts)} blocks of one learner chunk's backward at "
-                       f"B={TRAIN_B} (sums; per block in conv_block_vjp's per_block)"),
+                       f"B={TRAIN_B} (sums; per block in conv_block_vjp's per_block; ms "
+                       "CUDA events around the wrapper, device_ms the profiler's kernel "
+                       "time)"),
         })
     log(json.dumps({"serving": serve, "model_forward_ms": fwd, "play_launches": play_launches,
                     "train": {"cli": train, "step": step, "grad_rel_l2": grad["rel_l2"],

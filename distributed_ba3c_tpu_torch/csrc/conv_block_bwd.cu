@@ -19,282 +19,942 @@
 //      a tie evenly: the column pair of each window row, then the rows) or
 //      flax's (relu'(0) = 0; a window's whole cotangent to its first
 //      maximum, row-major). dz is g times 0, 1/8, 1/4, 1/2 or 1: exact.
-//  (b) dgrad (ba3c_conv_block_dgrad), blocks 1-3: dx = conv(dz, W flipped
-//      in both taps, in and out swapped), the same implicit GEMM as the
-//      forward with the pads swapped (top/left k - 1 - (k - 1) / 2), dz's
-//      grid as the input and the forward's input grid as the output, and a
-//      plain epilogue: the f32 sums rounded to bf16.
-//  (c) wgrad (ba3c_conv_block_wgrad): dw[ky, kx, ci, co] = sum over b, y, x
-//      of xpad[b, y + ky - ph, x + kx - pw, ci] * dz[b, y, x, co], a GEMM of
-//      [K = kh*kw*Ci] x [Co] reducing over the B * Hd * Wd positions of dz
-//      (18M for block 0 at B=2560). Both operands sit position-major in
-//      shared memory (the x halo of a band, the band's dz tile), and
-//      ldmatrix.trans turns both into mma.sync m16n8k16 fragments: A[k,
-//      position] from the halo, B[position, co] from the dz tile. Block 0's
-//      Ci = 4 puts 2 pixels in 8 bf16, so its halo holds pixel pairs (slot
-//      c = pixels c, c + 1), every one 16-byte aligned, and K runs by kernel
-//      rows padded to 32 as in the forward. A warp holds 64 (Co = 32) or 32
-//      (Co = 64) K rows x Co accumulators; the K fragments are split across
-//      the warps of a CTA and across KG CTAs, the positions across P CTAs
-//      (bands of dz rows, grid-strided). Each CTA writes its f32 partial
-//      [K rows, Co] to scratch, and a second kernel adds the P partials of
-//      every element in a fixed order, adds the route's db partials the same
-//      way and rounds both to bf16: no float atomics, so the gradients are
-//      bit-identical from run to run.
+//  (b) dgrad (ba3c_conv_block_dgrad, dgrad_kernel), blocks 1-3: dx =
+//      conv(dz, W flipped in both taps, in and out swapped) with the pads
+//      swapped (top/left k - 1 - (k - 1) / 2): an implicit GEMM with M the
+//      forward's input positions, N = Ci (32 or 64), K = kh * kw * Co
+//      ordered (tap of the flipped kernel, dz channel), the f32 sums
+//      rounded to bf16 once.
+//  (c) wgrad (ba3c_conv_block_wgrad, wgrad_kernel + wgrad_reduce_kernel):
+//      dw[ky, kx, ci, co] = sum over b, y, x of xpad[b, y + ky - ph, x + kx
+//      - pw, ci] * dz[b, y, x, co], a GEMM of M = K rows (kh * kw * Ci, or
+//      for Ci = 4 kernel rows padded to 32) by N = Co, reducing over the B *
+//      Hd * Wd positions of dz (18M for block 0 at B=2560).
 //
-// What bounds each piece on an H100 (chip_smoke.py counts each input read
+// What bounds each kernel on an H100 (chip_smoke.py counts each input read
 // once and each output written once, the operations at 989 TFLOP/s dense
-// bf16, the bytes at 3.35 TB/s): the route moves x, g and dz and does the
-// forward's products, so block 0 (dz 1.16 GB at B=2560) is bound by bytes,
-// blocks 1-2 by operations; the dgrad and wgrad do the same products as
-// the forward over dz, bound by operations except on block 3. The design
-// keeps every re-read of x, dz and the weights in shared memory and moves
-// the products to the tensor cores. Left for later: wgmma and TMA, a
-// double-buffered halo, fusing the route into the wgrad (dz would then
-// never reach device memory), and a route that writes dz with 16-byte
-// stores.
+// bf16, the bytes at 3.35 TB/s), and what the design does about it:
+//
+//  - The dgrad is bound by operations on blocks 1-2 and by bytes on block 3
+//    (dz and dx, 33 MB each at B=2560). Persistent CTAs of two warpgroups
+//    walk (sample, band) items, a contiguous run each. Each CTA reads the
+//    weights once, straight from the forward's HWIO w: the tap flip and the
+//    Ci/Co swap happen in the load, which lays B = W' [K][Ci] out K-major
+//    in 64-wide K panels with wgmma's 128-byte swizzle, so no weight is
+//    flipped or copied per call. A warpgroup takes a tile of 64 output
+//    positions at a time: A is the im2col of the dz halo, read into registers
+//    by ldmatrix two k steps ahead (no im2col buffer), B the weights
+//    through a descriptor, wgmma.m64nNk16 the products.
+//  - The wgrad is bound by bytes on blocks 0 and 3 (block 0's dz: 1.16 GB
+//    at B=2560) and by operations on blocks 1-2. One CTA a resident slot
+//    walks a contiguous run of (sample, band) items and owns all of K: the
+//    K split lives inside the CTA, across its three warpgroups (m64 tiles
+//    of K rows, round-robin), which share one loaded stage, so x and dz are
+//    read once. Each k16 step takes 16 positions: A = the im2col^T of the
+//    halo through ldmatrix.trans into registers, B = the dz tile through a
+//    descriptor (MN-major, swizzled as TMA lays the [positions][Co] box
+//    out). Block 0's Ci = 4 puts 2 pixels in 8 bf16, so its halo holds
+//    pixel pairs (slot c = pixels c, c + 1), expanded in shared memory from
+//    whole input rows (uint8 scaled there), and K runs by kernel rows padded
+//    to 32 as in the forward. The partial sums cross CTAs in a fixed order:
+//    the two CTAs of a thread-block cluster add their [K rows, Co] f32 sums
+//    through distributed shared memory, rank 0's then rank 1's, and one
+//    partial per cluster reaches device memory; wgrad_reduce_kernel adds
+//    the partials of every element in a fixed order, the route's db
+//    partials the same way, and rounds both to bf16. No float atomics: the
+//    gradients are bit-identical from run to run.
+//  - Both walk a ring of three shared-memory stages: thread 0 fills a stage
+//    with TMA (a tensor map over the channels-last tensor, its
+//    out-of-bounds zeros giving the pads; block 0's rows with bulk copies)
+//    as soon as every warp is done with it, an mbarrier counting the bytes,
+//    so the next two items land while one computes and no warp spends
+//    instructions on copies. No branch sits between the products of a
+//    k step (ptxas waits for the products in flight where control flow
+//    merges): a warpgroup's tiles past the band or past K compute on
+//    clamped rows and are not stored.
+//  - What still bounds them: A comes from shared memory through ldmatrix,
+//    2 KB a 64 x 16 tile, beside B's 1-2 KB, so shared-memory bandwidth
+//    binds before the tensor cores do (a loop of only ldmatrix and wgmma
+//    reaches about 55% of the dense rate on an H100; PERF.md).
+//  - Left for later: the route is untouched (the forward's mainloop with
+//    mma.sync); fusing it into block 0's wgrad would keep block 0's dz out
+//    of device memory, and its dz stores are 4 bytes a thread.
 //
 // Instantiated for the four BA3C blocks, at any H and W, as the forward
 // (ops/conv_block.py: KERNEL_GEOMETRIES; the dgrad for blocks 1-3 only,
-// DGRAD_GEOMETRIES). Any other geometry returns cudaErrorInvalidValue.
+// DGRAD_GEOMETRIES; block 0's wgrad at W with whole 16-byte input rows).
+// Any other geometry returns cudaErrorInvalidValue.
+
+#include <cooperative_groups.h>
+#include <cuda.h>
 
 #include <initializer_list>
+#include <mutex>
 
 #include "conv_block.cuh"
 
 namespace {
 
-// the most wgrad CTAs per SM the band height is chosen for (the wrapper
-// allocates this many partials per SM)
-constexpr int kWgradCtasPerSm = 4;
+namespace cg = cooperative_groups;
 
-// The wgrad's split of one geometry (G: the forward's geometry unpooled,
-// whose positions are dz's). SS bf16 per halo slot: a pixel pair in row
-// mode, else the forward's padded channel stride.
-template <class G>
-struct WGeom {
-  static constexpr int SS = G::ROW ? 8 : G::CS;
-  // A: the second 8 rows of a 16-row m fragment lie 8 channels on, or in
-  // row mode 2 pixels (one pair slot of 8 is 2 pixels x 4 channels)
-  static constexpr int MH = G::ROW ? 16 : 8;
-  static constexpr int MF = G::CO == 32 ? 4 : 2;  // m16 fragments per warp
-  static constexpr int NF = G::KP / 16;           // m16 fragments of K
-  static constexpr int NEED = (NF + MF - 1) / MF;  // warps over all of K
-  static constexpr int KG = (NEED + 7) / 8;        // CTAs along K
-  static constexpr int WARPS = (NEED + KG - 1) / KG;
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int DS = G::WS;  // dz tile row stride (bank-conflict free)
-  static_assert(G::ROW ? G::CI == 4 && G::KROW == 32 : G::CI % 16 == 0,
-                "wgrad takes Ci = 4 (pixel pairs) or a multiple of 16");
+constexpr int kStages = 3;      // the ring: the item computed and two in flight
+constexpr int kClusterCtas = 2;  // the wgrad's CTAs that add their sums on chip
 
-  static __host__ __device__ int tile_rows(int Wd, int R) { return (R * Wd + 15) / 16 * 16; }
-  static size_t smem_bytes(int Wd, int R) {
-    return size_t(tile_rows(Wd, R)) * DS * 2 +
-           size_t(R + G::KH - 1) * G::halo_pitch(Wd) * SS * 2;
-  }
-};
+// this thread's completed shared-memory writes become visible to wgmma
+// (the async proxy)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-// Row mode: the pixel pairs (iy0 + hr, hc - PW + {0, 1}) into slot (hr, hc)
-template <class G, typename TIn>
-__device__ __forceinline__ void load_pair_halo(const TIn* __restrict__ xb, bf16* hs,
-                                               int H, int W, int iy0, int nrows,
-                                               int hwc, int pitch, float scale,
-                                               int nthreads) {
-  const int n = nrows * hwc * 2;
-  for (int i = threadIdx.x; i < n; i += nthreads) {
-    const int p = i >> 1, half = i & 1;
-    const int hr = p / hwc, hc = p - hr * hwc;
-    const int iy = iy0 + hr, ix = hc - G::PW + half;
-    const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
-    const size_t src = in ? (size_t(iy) * W + ix) * 4 : 0;
-    copy_in<4>(hs + (hr * pitch + hc) * 8 + half * 4, xb + src, in, scale);
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N of the warpgroup's wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving an accumulator's use across a wait
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, layout (1: 128-byte swizzle, 2: 64-byte swizzle)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t layout) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo & 0x3FFFF) >> 4) << 16) |
+         (uint64_t((sbo & 0x3FFFF) >> 4) << 32) | (uint64_t(layout) << 62);
+}
+
+// d (m64 x N f32, the warpgroup's) += A (m64 x k16 bf16, from registers:
+// each warp's 16 rows as mma.sync's A fragment) * B (k16 x N bf16, shared
+// memory through desc; TB = 1: B is MN-major, 0: K-major). Thread (warp w,
+// lane 4g + t) holds d[i] = row 16w + g + 8 * ((i >> 1) & 1), column
+// 8 * (i >> 2) + 2t + (i & 1).
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  static_assert(N == 32 || N == 64, "wgmma_rs takes N = 32 or 64");
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1), "n"(TB));
   }
 }
 
-// CTA (kg, ps) = (blockIdx.x % KG, blockIdx.x / KG): K fragments
-// (kg * WARPS + warp) * MF .. + MF - 1 of each warp, over the items
-// (sample, band of R dz rows) ps, ps + P, ...; its f32 sums go to
-// part[ps][kp][co]. x is [B, H, W, CI], dz [B, Hd, Wd, CO].
-template <class G, typename TIn>
-__global__ void __launch_bounds__(WGeom<G>::THREADS)
-    wgrad_kernel(const TIn* __restrict__ x, const bf16* __restrict__ dz,
-                 float* __restrict__ part, int B, int H, int W, int Hd, int Wd, int R,
-                 int NB, int P, float scale) {
-  using WG = WGeom<G>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* dzs = reinterpret_cast<bf16*>(smem);
-  bf16* hs = dzs + WG::tile_rows(Wd, R) * WG::DS;
-  const int kg = blockIdx.x % WG::KG, ps = blockIdx.x / WG::KG;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2,
-            t = lane & 3;
-  const int mf0 = (kg * WG::WARPS + warp) * WG::MF;
-  const int hwc = G::halo_cols(Wd), pitch = G::halo_pitch(Wd);
+__host__ __device__ constexpr size_t align_up(size_t n, size_t a) { return (n + a - 1) / a * a; }
 
-  // each fragment's tap, as a byte offset in the halo from a position's slot
-  uint32_t toff[WG::MF];
-#pragma unroll
-  for (int i = 0; i < WG::MF; ++i) {
-    const int mf = min(mf0 + i, WG::NF - 1);
-    if constexpr (G::ROW) {
-      toff[i] = (((mf >> 1) * pitch + (mf & 1) * 4) * WG::SS) * 2;
-    } else {
-      const int tap = mf * 16 / G::CI, c = mf * 16 - tap * G::CI;
-      const int ky = tap / G::KW, kx = tap - ky * G::KW;
-      toff[i] = ((ky * pitch + kx) * WG::SS + c) * 2;
+// p's first 1024-byte boundary of shared address
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// ---------------------------------------------------------------------------
+// The ring: kStages shared-memory stages of (sample, band) items. Thread 0
+// fills a stage with TMA (cp.async.bulk) and announces the bytes on
+// full[s], which completes when they have landed; empty[s] completes when
+// every warp is done with the stage.
+
+// the dynamic shared memory's head: the ring's barriers, then up to the
+// first 1024-byte boundary (the swizzled layouts repeat every 1024 bytes
+// of shared address)
+constexpr size_t kSmemHead = 2048;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// the arrival of the thread that issues a stage's copies, and their bytes
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A box of a 4-D tensor map (coordinates innermost first; outside the
+// tensor, zeros) into shared memory, counted on bar
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into shared
+// memory, counted on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+struct Ring {
+  uint64_t full[kStages], empty[kStages];
+
+  // thread 0 sets the counts; every thread must pass a barrier before use
+  __device__ void init(int warps) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], warps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
   }
-  // B (dz, [position][DS]) through ldmatrix.trans, as the forward's weights
-  const uint32_t bw = smem_u32(dzs) +
-                      (((lane & 7) + ((lane >> 3) & 1) * 8) * WG::DS + (lane >> 4) * 8) * 2;
+  // Thread 0, as item it (of n) starts: the first kStages items' copies
+  // into the empty ring, then, once every warp is done with item it - 1,
+  // item it - 1 + kStages into its stage. issue(item, stage, full) announces
+  // and starts an item's copies.
+  template <class Issue>
+  __device__ void refill(int it, int n, Issue issue) {
+    if (threadIdx.x != 0) return;
+    if (it == 0) {
+      for (int j = 0; j < kStages && j < n; ++j) issue(j, j, &full[j]);
+    } else if (it - 1 + kStages < n) {
+      const int s = (it - 1) % kStages;
+      mbar_wait(&empty[s], ((it - 1) / kStages) & 1);
+      issue(it - 1 + kStages, s, &full[s]);
+    }
+  }
+  __device__ void acquire(int it) { mbar_wait(&full[it % kStages], (it / kStages) & 1); }
+  // a warp is done with item it's stage
+  __device__ void release(int it) {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[it % kStages]);
+  }
+};
 
-  float acc[WG::MF][G::NJ][4];
-#pragma unroll
-  for (int i = 0; i < WG::MF; ++i)
-#pragma unroll
-    for (int j = 0; j < G::NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+// The byte offset of 16-byte chunk c of slot `slot` in a TMA box of SB-byte
+// slots (a pixel's channels) laid out with the SB-byte swizzle: the chunk
+// XORed with the slot's row phase
+template <int SB>
+__device__ __forceinline__ uint32_t swizzled(int slot, int c) {
+  static_assert(SB == 64 || SB == 128, "the halos' slots are 64 or 128 bytes");
+  const int phase = SB == 128 ? (slot & 7) : ((slot >> 1) & 3);
+  return slot * SB + ((c ^ phase) << 4);
+}
 
+// cuTensorMapEncodeTiled, reached through the runtime (the build links no
+// libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A map over a channels-last bf16 tensor [n, h, w, c] (c * 2 = 64 or 128
+// bytes a pixel, that many bytes' swizzle), boxes of [1, bh, bw, c]
+int nhwc_map(CUtensorMap* map, const void* base, int n, int h, int w, int c, int bw, int bh) {
+  static EncodeTiled encode = nullptr;
+  static int status = -1;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    status = e != cudaSuccess ? static_cast<int>(e)
+             : found != cudaDriverEntryPointSuccess ? static_cast<int>(cudaErrorNotSupported)
+                                                   : 0;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  });
+  if (status) return status;
+  if (c * 2 != 64 && c * 2 != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (bw > 256 || bh > 256) return static_cast<int>(cudaErrorInvalidValue);
+  const cuuint64_t dims[4] = {cuuint64_t(c), cuuint64_t(w), cuuint64_t(h), cuuint64_t(n)};
+  const cuuint64_t strides[3] = {cuuint64_t(c) * 2, cuuint64_t(w) * c * 2,
+                                 cuuint64_t(h) * w * c * 2};
+  const cuuint32_t box[4] = {cuuint32_t(c), cuuint32_t(bw), cuuint32_t(bh), 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, one,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      c * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// (b) dgrad
+
+// G: the dgrad's conv geometry (dz's Co in as CI, the forward's Ci out as
+// CO, unpooled, the swapped pads); WGS_ warpgroups a CTA
+template <class G, int WGS_>
+struct DGeom {
+  static constexpr int N = G::CO;              // dx channels
+  static constexpr int KSTEPS = G::KP / 16;    // k16 steps: (tap, 16 dz channels)
+  static constexpr int PANELS = (G::KP + 63) / 64;
+  static constexpr int PANEL = N * 128;        // bytes: N rows of 64 K values
+  static constexpr int SB = G::CI * 2;         // bytes of a halo slot (a dz pixel)
+  static constexpr int WGS = WGS_;             // warpgroups
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr size_t W_BYTES = size_t(PANELS) * PANEL;
+  static_assert(!G::ROW && G::CI % 16 == 0 && !G::POOL,
+                "the dgrad takes dz channels in 16s");
+  static __host__ __device__ int halo_rows(int R) { return R + G::KH - 1; }
+  static __host__ __device__ size_t stage_bytes(int W, int R) {
+    return align_up(size_t(halo_rows(R)) * G::halo_cols(W) * SB, 1024);
+  }
+  static size_t smem_bytes(int W, int R) {
+    return kSmemHead + W_BYTES + kStages * stage_bytes(W, R);
+  }
+  // the weights' byte offset of B[k][n] (k a multiple of 8): K-major, the
+  // 16-byte chunks of a 128-byte row XORed with the row's index mod 8
+  static __host__ __device__ int w_offset(int k, int n) {
+    return (k >> 6) * PANEL + n * 128 + ((((k & 63) >> 3) ^ (n & 7)) << 4);
+  }
+};
+
+// Output positions (H x W of one sample, a band of R rows an item) x N;
+// the items i0 .. i0 + n - 1 of this CTA, each its halo of dz rows r0 - PH
+// .. r0 + R - 1 + KH - 1 - PH and columns -PW .. -PW + halo_cols - 1 (zero
+// outside Hd x Wd), a TMA box of tm_dz (dz [B, Hd, Wd, CI]). w is the
+// forward's HWIO [KH, KW, N, CI], dx [B, H, W, N].
+template <class G, int WGS>
+__global__ void __launch_bounds__(DGeom<G, WGS>::THREADS, 1)
+    dgrad_kernel(const __grid_constant__ CUtensorMap tm_dz, const bf16* __restrict__ w,
+                 bf16* __restrict__ dx, int B, int H, int W, int R, int NB) {
+  using DG = DGeom<G, WGS>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Ring& ring = *reinterpret_cast<Ring*>(smem_raw);
+  unsigned char* smem = align_1024(smem_raw + sizeof(Ring));
+  const uint32_t ws = smem_u32(smem);
+  const size_t stage = DG::stage_bytes(W, R);
+  const int hwc = G::halo_cols(W);
   const int n_items = B * NB;
-  for (int item = ps; item < n_items; item += P) {
-    const int bi = item / NB, r0 = (item - bi * NB) * R;
-    const int rows = min(R, Hd - r0);
-    const int units = rows * Wd;
-    __syncthreads();  // the previous item's reads of the tiles are done
-    if constexpr (G::ROW) {
-      load_pair_halo<G>(x + size_t(bi) * H * W * G::CI, hs, H, W, r0 - G::PH,
-                        rows + G::KH - 1, hwc, pitch, scale, WG::THREADS);
-    } else {
-      load_halo<G>(x + size_t(bi) * H * W * G::CI, hs, H, W, r0 - G::PH, rows + G::KH - 1,
-                   hwc, pitch, 0, scale, WG::THREADS);
-    }
-    // the band's dz, zero past its last position up to a whole k16 step
-    constexpr int DV = G::CO / 8;
-    const bf16* dzb = dz + (size_t(bi) * Hd + r0) * Wd * G::CO;
-    const int n_dz = WG::tile_rows(Wd, rows) * DV;
-    for (int i = threadIdx.x; i < n_dz; i += WG::THREADS) {
-      const int u = i / DV, v = i - u * DV;
-      const bool in = u < units;
-      cp_async<16>(dzs + u * WG::DS + v * 8, dzb + (in ? size_t(u) * G::CO + v * 8 : 0), in);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-    if (mf0 < WG::NF) {
-      for (int u0 = 0; u0 < units; u0 += 16) {
-        uint32_t fb[G::NJ / 2][4];
+  const int i0 = int(static_cast<long long>(n_items) * blockIdx.x / gridDim.x);
+  const int n = int(static_cast<long long>(n_items) * (blockIdx.x + 1) / gridDim.x) - i0;
+
+  // the weights, once: B[k = (ky * KW + kx) * CI + c][n] = w[KH-1-ky][KW-1-kx][n][c],
+  // the global reads in w's own order
+  constexpr int CV = G::CI / 8, TAPS = G::KH * G::KW;
+  for (int i = threadIdx.x; i < TAPS * DG::N * CV; i += DG::THREADS) {
+    const int v = i % CV, c = (i / CV) % DG::N, src_tap = i / (CV * DG::N);
+    const int k = (TAPS - 1 - src_tap) * G::CI + v * 8;
+    cp_async<16>(smem + DG::w_offset(k, c), w + (size_t(src_tap) * DG::N + c) * G::CI + v * 8,
+                 true);
+  }
+  cp_async_wait_all();
+  fence_async_smem();
+  ring.init(4 * DG::WGS);
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7, wl = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t box_bytes = uint32_t(DG::halo_rows(R)) * hwc * DG::SB;
+  for (int it = 0; it < n; ++it) {
+    ring.refill(it, n, [&](int j, int s, uint64_t* full) {
+      const int item = i0 + j, bi = item / NB, r0 = (item - bi * NB) * R;
+      mbar_expect_tx(full, box_bytes);
+      tma_load_4d(smem + DG::W_BYTES + s * stage, &tm_dz, full, 0, -G::PW, r0 - G::PH, bi);
+    });
+    ring.acquire(it);
+    const int item = i0 + it, bi = item / NB, r0 = (item - bi * NB) * R;
+    const int units = min(R, H - r0) * W;
+    const uint32_t hs = ws + uint32_t(DG::W_BYTES + (it % kStages) * stage);
+    bf16* yb = dx + (size_t(bi) * H + r0) * W * DG::N;
+    for (int tile = wg; tile * 64 < units; tile += DG::WGS) {
+      // A: lane l gives this warp's position tile * 64 + 16 * wl + (l & 15)
+      // (past the band: the band's last), chunk (l >> 4) of 16 channels
+      const int u = min(tile * 64 + 16 * wl + (lane & 15), units - 1);
+      const int slot0 = u / W * hwc + u % W;
+      float acc[DG::N / 2];
 #pragma unroll
-        for (int jj = 0; jj < G::NJ / 2; ++jj)
-          ldsm_x4_trans(fb[jj], bw + (u0 * WG::DS + jj * 16) * 2);
-        // A: lane l gives position u0 + (l >> 4) * 8 + (l & 7) (positions
-        // past the band repeat its last; their dz is 0), rows (l >> 3) & 1
-        // of the fragment's two 8-row halves
-        const int u = min(u0 + (lane >> 4) * 8 + (lane & 7), units - 1);
-        const int py = u / Wd, px = u - py * Wd;
-        const uint32_t at =
-            smem_u32(hs) + ((py * pitch + px) * WG::SS + ((lane >> 3) & 1) * WG::MH) * 2;
+      for (int e = 0; e < DG::N / 2; ++e) acc[e] = 0.f;
+      auto load_a = [&](int ks, uint32_t(&f)[4]) {
+        const int c = ks % (G::CI / 16), tap = ks / (G::CI / 16);
+        const int ky = tap / G::KW, kx = tap - ky * G::KW;
+        ldsm_x4(f, hs + swizzled<DG::SB>(slot0 + ky * hwc + kx, 2 * c + (lane >> 4)));
+      };
+      // A two k steps ahead: a step's ldmatrix overlaps the two products
+      // before it. No branch between the products: ptxas waits for the
+      // products in flight where control flow merges
+      uint32_t fa[3][4];
+      load_a(0, fa[0]);
+      load_a(1, fa[1]);
 #pragma unroll
-        for (int i = 0; i < WG::MF; ++i) {
-          if (mf0 + i < WG::NF) {
-            uint32_t fa[4];
-            ldsm_x4_trans(fa, at + toff[i]);
+      for (int ks = 0; ks < DG::KSTEPS; ++ks) {
+        wgmma_fence();
+        wgmma_rs<DG::N, 0>(acc, fa[ks % 3],
+                           gmma_desc(ws + (ks >> 2) * DG::PANEL + (ks & 3) * 32, 16, 1024, 1));
+        wgmma_commit();
+        wgmma_wait<1>();  // step ks - 1 is done with fa[(ks + 2) % 3]
+        if (ks + 2 < DG::KSTEPS) load_a(ks + 2, fa[(ks + 2) % 3]);
+      }
+      wgmma_wait<0>();
 #pragma unroll
-            for (int jj = 0; jj < G::NJ / 2; ++jj) {
-              mma_bf16(acc[i][2 * jj], fa, fb[jj][0], fb[jj][1]);
-              mma_bf16(acc[i][2 * jj + 1], fa, fb[jj][2], fb[jj][3]);
-            }
+      for (int e = 0; e < DG::N / 2; ++e) fence_reg(acc[e]);
+#pragma unroll
+      for (int j = 0; j < DG::N / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int uo = tile * 64 + 16 * wl + g + 8 * h;
+          if (uo < units) {
+            *reinterpret_cast<uint32_t*>(yb + size_t(uo) * DG::N + 8 * j + 2 * t) =
+                pack_bf16x2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
           }
         }
       }
     }
+    ring.release(it);
   }
+}
 
-  // the partial: rows kp = mf * 16 + g (+ 8) of each fragment, channels
-  // 8j + 2t, 8j + 2t + 1
+// The band: the R that minimises a cost model (rounds of WGS 64-position
+// tiles per band plus a fixed cost per item, over the CTAs that fit on the
+// card, never below one band's time); one CTA per resident slot or per
+// item, whichever is fewer.
+template <class G, int WGS>
+int launch_dgrad(const void* dz, const void* w, void* dx, int B, int H, int W, int Hd, int Wd,
+                 cudaStream_t stream) {
+  using DG = DGeom<G, WGS>;
+  const auto kernel = dgrad_kernel<G, WGS>;
+  DeviceInfo d;
+  using Tag = std::tuple<G, std::integral_constant<int, -2>, DG>;
+  if (const int e = device_info<Tag>(kernel, DG::THREADS, &d)) return e;
+  auto band_cost = [&](int rows) {
+    const int tiles = (rows * W + 63) / 64;
+    return double((tiles + DG::WGS - 1) / DG::WGS) + 0.15;
+  };
+  int best_r = 0, best_slots = 0;
+  double best = 0.0;
+  for (int R = 1; R <= H; ++R) {
+    const size_t smem = DG::smem_bytes(W, R);
+    if (smem > size_t(d.smem_block)) break;
+    const int per_sm = std::min<long long>(d.ctas_by_regs, d.smem_sm / (smem + 1024));
+    if (per_sm < 1) break;
+    const int NB = (H + R - 1) / R;
+    const double full = band_cost(R), last = band_cost(H - (NB - 1) * R);
+    const int slots = per_sm * d.sms;
+    const double time = std::max(double(B) * ((NB - 1) * full + last) / slots,
+                                 std::max(full, last));
+    if (best_r == 0 || time < best) {
+      best_r = R;
+      best = time;
+      best_slots = slots;
+    }
+  }
+  if (best_r == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int NB = (H + best_r - 1) / best_r;
+  const long long items = static_cast<long long>(B) * NB;
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(std::min<long long>(items, best_slots));
+  CUtensorMap tm_dz;
+  if (const int e = nhwc_map(&tm_dz, dz, B, Hd, Wd, G::CI, G::halo_cols(W),
+                             DG::halo_rows(best_r))) {
+    return e;
+  }
+  kernel<<<grid, DG::THREADS, DG::smem_bytes(W, best_r), stream>>>(
+      tm_dz, static_cast<const bf16*>(w), static_cast<bf16*>(dx), B, H, W, best_r, NB);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// (c) wgrad
+
+// The wgrad's split of one geometry (G: the forward's geometry unpooled,
+// whose positions are dz's). A halo slot: SB bytes of a pixel's channels
+// (a TMA box, swizzled), or in row mode a pixel pair (16 bytes), expanded
+// in shared memory from whole input rows. K rows: kh * kw * Ci in (ky, kx,
+// ci) order, or in row mode chunks of 8 = a pixel pair of one kernel row,
+// PAIRS a row, the rows of a fragment's two 8-row halves two chunks that
+// each lane addresses on its own (kh * PAIRS = 15 chunks for block 0: two
+// m64 tiles).
+template <class G>
+struct WGeom {
+  static constexpr int SB = G::ROW ? 16 : G::CI * 2;
+  static constexpr int PAIRS = (G::KW + 1) / 2;    // row mode: pixel pairs a kernel row
+  static constexpr int CHUNKS = G::KH * PAIRS;     // row mode: 8-row chunks of K
+  static constexpr int KP = G::ROW ? (CHUNKS * 8 + 63) / 64 * 64 : G::KP;  // K rows computed
+  static constexpr int NF = KP / 16;               // m16 fragments of K
+  static constexpr int TILES = (NF + 3) / 4;       // m64 tiles of K, one warp a fragment
+  static constexpr int WGS = TILES < 3 ? TILES : 3;  // warpgroups
+  static constexpr int TPW = (TILES + WGS - 1) / WGS;  // tiles of warpgroup 0
+  static constexpr int AD = TPW <= 3 ? 3 : 2;      // k steps of A in registers
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int NACC = G::CO / 2;           // accumulators a thread per tile
+  static constexpr int DROW = G::CO * 2;           // dz tile bytes per position
+  static constexpr int SWZ = G::CO == 64 ? 1 : 2;  // its swizzle: 128 B or 64 B
+  static constexpr int KGROUP = 8 * DROW;          // bytes of 8 positions
+  static constexpr int CL = kClusterCtas;
+  static_assert(G::ROW ? G::CI == 4 : G::CI % 16 == 0,
+                "wgrad takes Ci = 4 (pixel pairs) or a multiple of 16");
+  static_assert(G::CO == 32 || G::CO == 64, "wgrad takes Co = 32 or 64");
+
+  static __host__ __device__ int halo_rows(int R) { return R + G::KH - 1; }
+  // positions a stage holds: whole rotations of the A ring (AD k16 steps)
+  static __host__ __device__ int tile_pos(int Wd, int R) {
+    return (R * Wd + 16 * AD - 1) / (16 * AD) * (16 * AD);
+  }
+  static __host__ __device__ size_t dz_bytes(int Wd, int R) {
+    return size_t(tile_pos(Wd, R)) * DROW;
+  }
+  // a stage's halo: the TMA box, or in row mode whole input rows of W * CI
+  // elements of `esize` bytes
+  static __host__ __device__ size_t halo_bytes(int W, int Wd, int R, int esize) {
+    return align_up(G::ROW ? size_t(halo_rows(R)) * W * G::CI * esize
+                           : size_t(halo_rows(R)) * G::halo_cols(Wd) * SB,
+                    1024);
+  }
+  static __host__ __device__ size_t stage_bytes(int W, int Wd, int R, int esize) {
+    return dz_bytes(Wd, R) + halo_bytes(W, Wd, R, esize);
+  }
+  // row mode: the pixel pairs, expanded from the stage's rows
+  static __host__ __device__ size_t pair_bytes(int Wd, int R) {
+    return G::ROW ? align_up(size_t(halo_rows(R)) * G::halo_pitch(Wd) * 16, 1024) : 0;
+  }
+  static constexpr size_t RED_BYTES = size_t(KP) * G::CO * 4;
+  // the K row of weight k = (ky * KW + kx) * CI + ci
+  static __host__ __device__ int kp_of(int k) {
+    if (!G::ROW) return k;
+    const int ky = k / (G::KW * G::CI), kx = k / G::CI % G::KW, ci = k % G::CI;
+    return (ky * PAIRS + kx / 2) * 8 + (kx % 2) * G::CI + ci;
+  }
+  static size_t smem_bytes(int W, int Wd, int R, int esize) {
+    return kSmemHead +
+           std::max(kStages * stage_bytes(W, Wd, R, esize) + pair_bytes(Wd, R), RED_BYTES);
+  }
+  // the dz tile's byte offset of position u, channels 8v .. 8v + 7: rows
+  // of DROW bytes, the 16-byte chunks XORed with the swizzle's row phase
+  // (as TMA lays the box out)
+  static __host__ __device__ int dz_offset(int u, int v) {
+    const int phase = G::CO == 64 ? (u & 7) : ((u >> 1) & 3);
+    return u * DROW + ((v ^ phase) << 4);
+  }
+};
+
+// CTA p of a cluster of CL walks the items (sample, band of R dz rows) i0
+// .. i0 + n - 1, all of K: warpgroup wg holds the m64 tiles wg, wg + WGS,
+// .. (TPW or TPW - 1 of them, a count its code is compiled for), warp wl of
+// it fragment 4 * tile + wl. The cluster's f32 sums, rank
+// 0's plus rank 1's, go to part[cluster][kp][co]. tm_dz maps dz [B, Hd,
+// Wd, CO] (boxes of R rows), tm_x x [B, H, W, CI] (boxes of the halo; row
+// mode reads x's rows with bulk copies).
+template <class G, typename TIn>
+__global__ void __launch_bounds__(WGeom<G>::THREADS, 1)
+    wgrad_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_dz, const TIn* __restrict__ x,
+                 float* __restrict__ part, int B, int H, int W, int Hd, int Wd, int R, int NB,
+                 float scale) {
+  using WG = WGeom<G>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  Ring& ring = *reinterpret_cast<Ring*>(smem_raw);
+  unsigned char* smem = align_1024(smem_raw + sizeof(Ring));
+  constexpr int ES = sizeof(TIn);
+  const size_t stage = WG::stage_bytes(W, Wd, R, ES), dzb = WG::dz_bytes(Wd, R);
+  bf16* pairs = reinterpret_cast<bf16*>(smem + kStages * stage);
+  float* red = reinterpret_cast<float*>(smem);  // the sums, once the ring is drained
+  const int hwc = G::halo_cols(Wd), pitch = G::halo_pitch(Wd);
+  const int n_items = B * NB;
+  const int i0 = int(static_cast<long long>(n_items) * blockIdx.x / gridDim.x);
+  const int n = int(static_cast<long long>(n_items) * (blockIdx.x + 1) / gridDim.x) - i0;
+  const int wg = threadIdx.x >> 7, wl = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the dz tiles' positions past a box of R rows stay 0
+  for (int s = 0; s < kStages; ++s) {
+    for (int i = R * Wd * WG::DROW + threadIdx.x * 16; i < int(dzb); i += WG::THREADS * 16) {
+      *reinterpret_cast<uint4*>(smem + s * stage + i) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  fence_async_smem();
+  ring.init(4 * WG::WGS);
+  __syncthreads();
+
+  // the warpgroup's NT tiles over all items, then its sums into red
+  auto consume = [&](auto nt_tag) {
+    constexpr int NT = decltype(nt_tag)::value;
+    float acc[NT][WG::NACC];
 #pragma unroll
-  for (int i = 0; i < WG::MF; ++i) {
-    if (mf0 + i >= WG::NF) continue;
+    for (int i = 0; i < NT; ++i)
 #pragma unroll
-    for (int j = 0; j < G::NJ; ++j) {
+      for (int e = 0; e < WG::NACC; ++e) acc[i][e] = 0.f;
+    const int hpitch = G::ROW ? pitch : hwc;  // the halo's slots a row
+    const int half = (lane >> 3) & 1;          // which 8-row half of a fragment
+    // each tile's fragment for this lane: its rows' slot offset from a
+    // position's slot and their 16-byte chunk (fragments and chunks past K
+    // repeat the last; never written)
+    int toff[NT], tch[NT];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int kp = (mf0 + i) * 16 + g + 8 * h;
-        *reinterpret_cast<float2*>(part + (size_t(ps) * G::KP + kp) * G::CO + 8 * j + 2 * t) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+    for (int i = 0; i < NT; ++i) {
+      const int mf = min((wg + WG::WGS * i) * 4 + wl, WG::NF - 1);
+      if constexpr (G::ROW) {  // chunk 2 mf + half: pixel pair p of kernel row ky
+        const int c = min(2 * mf + half, WG::CHUNKS - 1);
+        toff[i] = c / WG::PAIRS * pitch + 2 * (c % WG::PAIRS);
+        tch[i] = 0;
+      } else {  // tap (ky, kx), channels c .. c + 15
+        const int tap = mf * 16 / G::CI, c = mf * 16 - tap * G::CI;
+        const int ky = tap / G::KW, kx = tap - ky * G::KW;
+        toff[i] = ky * hwc + kx;
+        tch[i] = c / 8 + half;
       }
     }
-  }
-}
-
-// dw (HWIO) = bf16 of the P partials summed in order; row mode maps each
-// real k = (ky * KW + kx) * CI + ci to its padded row ky * KROW + kx * CI +
-// ci. db = bf16 of the route's n_dbpart partials summed in order.
-template <class G>
-__global__ void wgrad_reduce_kernel(const float* __restrict__ part, int P,
-                                    const float* __restrict__ dbpart, int n_dbpart,
-                                    bf16* __restrict__ dw, bf16* __restrict__ db) {
-  constexpr int K = G::KH * G::KW * G::CI;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < K * G::CO) {
-    const int k = i / G::CO, co = i - k * G::CO;
-    int kp = k;
-    if constexpr (G::ROW) {
-      const int ky = k / (G::KW * G::CI);
-      kp = ky * G::KROW + (k - ky * G::KW * G::CI);
+    for (int it = 0; it < n; ++it) {
+      ring.refill(it, n, [&](int j, int s, uint64_t* full) {
+        const int item = i0 + j, bi = item / NB, r0 = (item - bi * NB) * R;
+        unsigned char* st = smem + s * stage;
+        if constexpr (G::ROW) {
+          const int row_bytes = W * G::CI * ES;
+          const int lo = max(0, r0 - G::PH), hi = min(H, r0 - G::PH + WG::halo_rows(R));
+          mbar_expect_tx(full,
+                         uint32_t(R) * Wd * WG::DROW + uint32_t(max(0, hi - lo)) * row_bytes);
+          tma_load_4d(st, &tm_dz, full, 0, 0, r0, bi);
+          for (int iy = lo; iy < hi; ++iy) {
+            bulk_load(st + dzb + size_t(iy - (r0 - G::PH)) * row_bytes,
+                      x + (size_t(bi) * H + iy) * W * G::CI, row_bytes, full);
+          }
+        } else {
+          mbar_expect_tx(full, uint32_t(R) * Wd * WG::DROW +
+                                   uint32_t(WG::halo_rows(R)) * hwc * WG::SB);
+          tma_load_4d(st, &tm_dz, full, 0, 0, r0, bi);
+          tma_load_4d(st + dzb, &tm_x, full, 0, -G::PW, r0 - G::PH, bi);
+        }
+      });
+      ring.acquire(it);
+      const int item = i0 + it, bi = item / NB, r0 = (item - bi * NB) * R;
+      const int rows = min(R, Hd - r0), units = rows * Wd;
+      const uint32_t dzt = smem_u32(smem + (it % kStages) * stage);
+      uint32_t hs = dzt + uint32_t(dzb);
+      if constexpr (G::ROW) {
+        // the pixel pairs (hc - PW, hc - PW + 1) of halo row hr into slot
+        // (hr, hc) from the stage's rows; zero outside the image, uint8
+        // scaled by bf16(1/255) with one rounding
+        const unsigned char* raw = smem + (it % kStages) * stage + dzb;
+        const int row_bytes = W * G::CI * ES;
+        __syncthreads();  // the last item's reads of the pairs are done
+        for (int e = threadIdx.x; e < (rows + G::KH - 1) * hwc; e += WG::THREADS) {
+          const int hr = e / hwc, hc = e - hr * hwc, iy = r0 - G::PH + hr;
+          uint32_t v[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int ix = hc - G::PW + h;
+            const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
+            const unsigned char* p = raw + hr * row_bytes + ix * G::CI * ES;
+            if constexpr (ES == 2) {
+              const uint2 q = in ? *reinterpret_cast<const uint2*>(p) : make_uint2(0, 0);
+              v[2 * h] = q.x;
+              v[2 * h + 1] = q.y;
+            } else {
+              const uint32_t q = in ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+              v[2 * h] = pack_bf16x2(float(q & 0xff) * scale, float((q >> 8) & 0xff) * scale);
+              v[2 * h + 1] = pack_bf16x2(float((q >> 16) & 0xff) * scale, float(q >> 24) * scale);
+            }
+          }
+          *reinterpret_cast<uint4*>(pairs + (hr * pitch + hc) * 8) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+        }
+        __syncthreads();
+        hs = smem_u32(pairs);
+      }
+      const int steps = WG::tile_pos(Wd, rows) / 16;
+      // A: lane l gives position u = 16 ks + (l >> 4) * 8 + (l & 7) (past
+      // the band: the band's last; its dz is 0) for its half's rows. The
+      // loads come in step order: u's column and halo slot advance by 16
+      // positions a step, wrapping rows, with no division
+      const int u0 = (lane >> 4) * 8 + (lane & 7);
+      const int last = (rows - 1) * hpitch + Wd - 1;  // the band's last position's slot
+      int ux = u0 % Wd, uslot = (u0 / Wd) * hpitch + ux;
+      auto load_a = [&](int ks, uint32_t(&f)[NT][4]) {
+        const int slot = ks * 16 + u0 < units ? uslot : last;
+        // 16 positions on: one or (Wd < 16) two row wraps, without a branch
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int wrap = ux + 16 * (1 - r) >= Wd;
+          ux += 16 * (1 - r) - wrap * Wd;
+          uslot += 16 * (1 - r) + wrap * (hpitch - Wd);
+        }
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          if constexpr (G::ROW) {
+            ldsm_x4_trans(f[i], hs + (slot + toff[i]) * 16);
+          } else {
+            ldsm_x4_trans(f[i], hs + swizzled<WG::SB>(slot + toff[i], tch[i]));
+          }
+        }
+      };
+      // the products of step ks, then, once step ks - 1 is done with them,
+      // A of step ks + AD - 1 into `next`. No branch between the products
+      // (ptxas waits for the products in flight where control flow
+      // merges): the ring rotates whole, steps being a multiple of AD
+      auto step = [&](int ks, const uint32_t(&cur)[NT][4], uint32_t(&next)[NT][4]) {
+        const uint64_t desc =
+            gmma_desc(dzt + ks * 16 * WG::DROW, WG::KGROUP, WG::KGROUP, WG::SWZ);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < NT; ++i) wgmma_rs<G::CO, 1>(acc[i], cur[i], desc);
+        wgmma_commit();
+        wgmma_wait<1>();
+        load_a(ks + WG::AD - 1, next);
+      };
+      uint32_t fa[WG::AD][NT][4];
+      load_a(0, fa[0]);
+      if constexpr (WG::AD == 3) {
+        load_a(1, fa[1]);
+        for (int ks = 0; ks < steps; ks += 3) {
+          step(ks, fa[0], fa[2]);
+          step(ks + 1, fa[1], fa[0]);
+          step(ks + 2, fa[2], fa[1]);
+        }
+      } else {
+        for (int ks = 0; ks < steps; ks += 2) {
+          step(ks, fa[0], fa[1]);
+          step(ks + 1, fa[1], fa[0]);
+        }
+      }
+      wgmma_wait<0>();  // the products have read the stage's dz tile
+      ring.release(it);
     }
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < WG::NACC; ++e) fence_reg(acc[i][e]);
+    __syncthreads();  // the ring is drained: its memory takes the sums
+    // the warpgroup's sums as red[kp][co]: fragment mf's rows mf * 16 + g
+    // (+ 8), channels 8j + 2t, 8j + 2t + 1
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int mf = (wg + WG::WGS * i) * 4 + wl;
+      if (mf >= WG::NF) continue;
+#pragma unroll
+      for (int j = 0; j < G::CO / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int kp = mf * 16 + g + 8 * h;
+          *reinterpret_cast<float2*>(red + kp * G::CO + 8 * j + 2 * t) =
+              make_float2(acc[i][4 * j + 2 * h], acc[i][4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  };
+  if ((WG::TILES - wg + WG::WGS - 1) / WG::WGS == WG::TPW) {
+    consume(std::integral_constant<int, WG::TPW>{});
+  } else if constexpr (WG::TPW > 1) {
+    consume(std::integral_constant<int, WG::TPW - 1>{});
+  }
+
+  // the cluster's partial: rank r adds slice r of every rank's sums, in
+  // rank order, through distributed shared memory
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rank = static_cast<int>(cluster.block_rank());
+  constexpr int NE = WG::KP * G::CO;
+  float* out = part + size_t((blockIdx.x - rank) / WG::CL) * NE;
+  for (int e = NE * rank / WG::CL + threadIdx.x; e < NE * (rank + 1) / WG::CL;
+       e += WG::THREADS) {
     float s = 0.f;
-    for (int p = 0; p < P; ++p) s += part[(size_t(p) * G::KP + kp) * G::CO + co];
-    dw[i] = __float2bfloat16(s);
-  } else if (i < K * G::CO + G::CO) {
-    const int co = i - K * G::CO;
-    float s = 0.f;
-    for (int p = 0; p < n_dbpart; ++p) s += dbpart[size_t(p) * G::CO + co];
-    db[co] = __float2bfloat16(s);
+#pragma unroll
+    for (int r = 0; r < WG::CL; ++r) s += cluster.map_shared_rank(red, r)[e];
+    out[e] = s;
+  }
+  cluster.sync();  // no CTA leaves while another reads its sums
+}
+
+// dw (HWIO) = bf16 of the P partials summed in a fixed order, weight k at
+// K row WGeom::kp_of(k); db = bf16 of the route's n_dbpart partials the
+// same way. A CTA takes 32 consecutive outputs (dw's K * CO, then db's
+// CO); its warp r adds run r of the kReduceRuns contiguous runs of the
+// partials in order, a lane an output (the warp's reads coalesce), then
+// warp 0 adds the runs' sums in run order.
+constexpr int kReduceRuns = 8;
+
+template <class G>
+__global__ void __launch_bounds__(32 * kReduceRuns)
+    wgrad_reduce_kernel(const float* __restrict__ part, int P,
+                        const float* __restrict__ dbpart, int n_dbpart,
+                        bf16* __restrict__ dw, bf16* __restrict__ db) {
+  using WG = WGeom<G>;
+  constexpr int NW = G::KH * G::KW * G::CI * G::CO;
+  __shared__ float runs[kReduceRuns][32];
+  const int r = threadIdx.x >> 5, i = blockIdx.x * 32 + (threadIdx.x & 31);
+  float s = 0.f;
+  if (i < NW) {
+    const int k = i / G::CO, co = i - k * G::CO;
+    const float* src = part + size_t(WG::kp_of(k)) * G::CO + co;
+#pragma unroll 4
+    for (int p = P * r / kReduceRuns; p < P * (r + 1) / kReduceRuns; ++p) {
+      s += src[size_t(p) * WG::KP * G::CO];
+    }
+  } else if (i < NW + G::CO) {
+    const float* src = dbpart + (i - NW);
+#pragma unroll 4
+    for (int p = n_dbpart * r / kReduceRuns; p < n_dbpart * (r + 1) / kReduceRuns; ++p) {
+      s += src[size_t(p) * G::CO];
+    }
+  }
+  runs[r][threadIdx.x & 31] = s;
+  __syncthreads();
+  if (r == 0 && i < NW + G::CO) {
+    for (int j = 1; j < kReduceRuns; ++j) s += runs[j][threadIdx.x];
+    if (i < NW) {
+      dw[i] = __float2bfloat16(s);
+    } else {
+      db[i - NW] = __float2bfloat16(s);
+    }
   }
 }
 
-// The band: the tallest R at which as many CTAs fit on an SM as registers
-// allow, at most kWgradCtasPerSm (at least 1 row): a CTA loads its band and
-// then computes, so the SM overlaps one CTA's loads with another's
-// products (block 0, 3 warps a CTA: 1.89 -> 1.15 ms at B=2560 on an H100
-// against the tallest band at which 2 fit; PERF.md). The position split P:
-// the CTAs that fit on the card over the KG along K, at most part_cap and
-// the items.
+// How many clusters of `threads`-thread CTAs with `smem` bytes each fit on
+// the card at once, asked once per kernel, device and smem size.
+template <class Kernel>
+int max_clusters(Kernel kernel, int threads, size_t smem, int* out) {
+  struct Entry {
+    int dev = -1;
+    size_t smem = 0;
+    int n = 0;
+  };
+  static Entry cache[8];
+  static std::mutex mu;
+  int dev = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& c : cache) {
+    if (c.dev == dev && c.smem == smem) {
+      *out = c.n;
+      return 0;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kClusterCtas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(kClusterCtas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) {
+    return static_cast<int>(e);
+  }
+  static int next = 0;
+  cache[next] = Entry{dev, smem, n};
+  next = (next + 1) % 8;
+  *out = n;
+  return 0;
+}
+
+// The band: the R that minimises ceil(items / CTAs) * (k16 steps of a band
+// + two steps' worth of fixed cost), among those whose ring fits. The grid:
+// whole clusters, as many as fit on the card at once, at most part_cap
+// clusters and one CTA per item.
 template <class G, typename TIn>
 int launch_wgrad(const void* x, const void* dz, const void* dbpart, int n_dbpart,
                  void* part, int part_cap, void* dw, void* db, int B, int H, int W,
                  int Hd, int Wd, float scale, cudaStream_t stream) {
   using WG = WGeom<G>;
+  constexpr int ES = sizeof(TIn);
   const auto kernel = wgrad_kernel<G, TIn>;
   DeviceInfo d;
   using Tag = std::tuple<G, TIn, std::integral_constant<int, -1>>;
   if (const int e = device_info<Tag>(kernel, WG::THREADS, &d)) return e;
-  int R = 0;
-  const int target = std::max(1, std::min(d.ctas_by_regs, kWgradCtasPerSm));
-  for (int r = 1; r <= Hd; ++r) {
-    const size_t smem = WG::smem_bytes(Wd, r);
-    if (smem > size_t(d.smem_block) || target * (smem + 1024) > size_t(d.smem_sm)) break;
-    R = r;
+  // row mode copies whole rows of x: 16-byte multiples
+  if (part_cap < 1 || (G::ROW && (W * G::CI * ES) % 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (R == 0) {
-    if (WG::smem_bytes(Wd, 1) > size_t(d.smem_block)) return static_cast<int>(cudaErrorInvalidValue);
-    R = 1;
+  int best_r = 0, best_grid = 0;
+  double best = 0.0;
+  for (int R = 1; R <= Hd; ++R) {
+    const size_t smem = WG::smem_bytes(W, Wd, R, ES);
+    if (smem > size_t(d.smem_block)) break;
+    int clusters = 0;
+    if (const int e = max_clusters(kernel, WG::THREADS, smem, &clusters)) return e;
+    const int NB = (Hd + R - 1) / R;
+    const long long items = static_cast<long long>(B) * NB;
+    const long long cap = std::min<long long>(clusters, part_cap);
+    const long long grid = WG::CL * std::max<long long>(
+        1, std::min<long long>(cap, (items + WG::CL - 1) / WG::CL));
+    const double time = double((items + grid - 1) / grid) * (WG::tile_pos(Wd, R) / 16 + 2);
+    if (clusters >= 1 && (best_r == 0 || time < best)) {
+      best_r = R;
+      best = time;
+      best_grid = static_cast<int>(grid);
+    }
   }
-  const size_t smem = WG::smem_bytes(Wd, R);
-  const int NB = (Hd + R - 1) / R;
-  const long long items = static_cast<long long>(B) * NB;
-  if (items > 0x7fffffff || part_cap < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_sm = std::max<long long>(
-      1, std::min<long long>(d.ctas_by_regs, d.smem_sm / (smem + 1024)));
-  const long long P = std::min<long long>(
-      {static_cast<long long>(part_cap), std::max(1, per_sm * d.sms / WG::KG), items});
-  kernel<<<static_cast<int>(WG::KG * P), WG::THREADS, smem, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const bf16*>(dz), static_cast<float*>(part), B,
-      H, W, Hd, Wd, R, NB, static_cast<int>(P), scale);
-  cudaError_t e = cudaGetLastError();
+  if (best_r == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int NB = (Hd + best_r - 1) / best_r;
+  if (static_cast<long long>(B) * NB > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap tm_x, tm_dz;
+  if (const int e = nhwc_map(&tm_dz, dz, B, Hd, Wd, G::CO, Wd, best_r)) return e;
+  if constexpr (G::ROW) {
+    tm_x = tm_dz;  // unused: row mode copies x's rows
+  } else {
+    if (const int e = nhwc_map(&tm_x, x, B, H, W, G::CI, G::halo_cols(Wd),
+                               WG::halo_rows(best_r))) {
+      return e;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = WG::CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(best_grid);
+  cfg.blockDim = dim3(WG::THREADS);
+  cfg.dynamicSmemBytes = WG::smem_bytes(W, Wd, best_r, ES);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, tm_x, tm_dz, static_cast<const TIn*>(x),
+                                     static_cast<float*>(part), B, H, W, Hd, Wd, best_r, NB,
+                                     scale);
   if (e != cudaSuccess) return static_cast<int>(e);
-  constexpr int n = G::KH * G::KW * G::CI * G::CO + G::CO;
-  wgrad_reduce_kernel<G><<<(n + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<int>(P),
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  constexpr int ne = G::KH * G::KW * G::CI * G::CO + G::CO;
+  wgrad_reduce_kernel<G><<<(ne + 31) / 32, 32 * kReduceRuns, 0, stream>>>(
+      static_cast<const float*>(part), best_grid / WG::CL,
       static_cast<const float*>(dbpart), n_dbpart, static_cast<bf16*>(dw),
       static_cast<bf16*>(db));
   return static_cast<int>(cudaGetLastError());
@@ -354,34 +1014,38 @@ extern "C" int ba3c_conv_block_route(const void* x, int x_uint8, const void* w,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// (b) dx [B, H, W, Ci] bf16 from dz and wt [kh, kw, Co, Ci], the forward's
-// HWIO weight flipped in ky and kx with Ci and Co swapped. Blocks 1-3.
-extern "C" int ba3c_conv_block_dgrad(const void* dz, const void* wt, void* dx, int B,
+// (b) dx [B, H, W, Ci] bf16 from dz and w, the forward's HWIO weight [kh,
+// kw, Ci, Co] as it is (the kernel flips it as it loads it). Blocks 1-3.
+extern "C" int ba3c_conv_block_dgrad(const void* dz, const void* w, void* dx, int B,
                                      int H, int W, int Ci, int Co, int kh, int kw,
                                      int pool, void* stream) {
   if (B == 0) return 0;
   if (B < 0 || H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (misaligned({dz, wt, dx})) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (misaligned({dz, w, dx})) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int U = pool ? 2 : 1, Hd = H / U * U, Wd = W / U * U;
   const auto is = [&](int KH, int CI, int CO, bool POOL) {
     return kh == KH && kw == KH && Ci == CI && Co == CO && (pool != 0) == POOL;
   };
-  // the dgrad's geometry: Co in, Ci out, unpooled, top/left pad k-1-(k-1)/2
-  const auto dgrad = [&](auto geom) {
+  // the dgrad's geometry: Co in, Ci out, unpooled, top/left pad k-1-(k-1)/2;
+  // warpgroups a CTA as measured best on an H100 (PERF.md): three for
+  // blocks 1-2, two for block 3's samples of two 64-position tiles
+  const auto dgrad = [&](auto geom, auto wgs) {
     using G = decltype(geom);
-    return launch<G, bf16, kStore>(dz, wt, nullptr, dx, B, H, W, Hd, Wd, 1.f, RouteArgs{}, 0,
-                                   nullptr, s);
+    return launch_dgrad<G, decltype(wgs)::value>(dz, w, dx, B, H, W, Hd, Wd, s);
   };
-  if (is(5, 32, 32, true)) return dgrad(Geom<5, 5, 32, 32, false, 2, 2>{});
-  if (is(4, 32, 64, true)) return dgrad(Geom<4, 4, 64, 32, false, 2, 2>{});
-  if (is(3, 64, 64, false)) return dgrad(Geom<3, 3, 64, 64, false, 1, 1>{});
+  using Two = std::integral_constant<int, 2>;
+  using Three = std::integral_constant<int, 3>;
+  if (is(5, 32, 32, true)) return dgrad(Geom<5, 5, 32, 32, false, 2, 2>{}, Three{});
+  if (is(4, 32, 64, true)) return dgrad(Geom<4, 4, 64, 32, false, 2, 2>{}, Three{});
+  if (is(3, 64, 64, false)) return dgrad(Geom<3, 3, 64, 64, false, 1, 1>{}, Two{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // (c) dw [kh, kw, Ci, Co] and db [Co] bf16 from x (the forward's input), dz
-// and the route's db partials. part: f32 scratch of part_cap partitions of
-// KP x Co (KP = kh * kw * Ci, or kh * 32 for Ci = 4).
+// and the route's db partials. part: f32 scratch of part_cap partials of
+// KP x Co (KP = kh * kw * Ci, or kh * 32 for Ci = 4), one a cluster of
+// kClusterCtas CTAs.
 extern "C" int ba3c_conv_block_wgrad(const void* x, int x_uint8, const void* dz,
                                      const void* dbpart, int n_dbpart, void* part,
                                      int part_cap, void* dw, void* db, int B, int H,

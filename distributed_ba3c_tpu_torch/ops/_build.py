@@ -46,7 +46,7 @@ _SIGNATURES = {
             [_P, _I, _P, _P, _P, _P, _P, _I, ctypes.POINTER(_I),
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
         ),
-        # dz, wt, dx, B, H, W, Ci, Co, kh, kw, pool, stream
+        # dz, w (the forward's HWIO), dx, B, H, W, Ci, Co, kh, kw, pool, stream
         "ba3c_conv_block_dgrad": (
             _I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         ),

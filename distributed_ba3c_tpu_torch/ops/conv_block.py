@@ -326,10 +326,12 @@ def _dz_grid(s: ConvSpec) -> Tuple[int, int]:
 
 
 def _kp(s: ConvSpec) -> int:
-    """The wgrad's K rows: kh*kw*Ci, or kh kernel rows padded to 32 when
-    Ci = 4 (csrc/conv_block.cuh: Geom::KP)."""
+    """The wgrad's K rows: kh*kw*Ci, or when Ci = 4 chunks of 8 (a pixel
+    pair of one kernel row, ceil(kw / 2) a row) padded to whole m64 tiles
+    (csrc/conv_block_bwd.cu: WGeom::KP)."""
     if s.Ci % 16:
-        return s.kh * (-(-s.kw * s.Ci // 16) * 16)
+        chunks = s.kh * -(-s.kw // 2)
+        return -(-chunks * 8 // 64) * 64
     return s.kh * s.kw * s.Ci
 
 
@@ -433,12 +435,15 @@ def conv_block_dgrad(dz, w, s: ConvSpec) -> torch.Tensor:
         raise ValueError(f"csrc/conv_block_bwd.cu has no dgrad kernel for {s}")
     B = dz.shape[0]
     _check_dz(dz, B, s)
-    wt = w.flip((0, 1)).transpose(2, 3).contiguous()  # [kh, kw, Co, Ci]
+    if w.dtype != torch.bfloat16 or w.shape != (s.kh, s.kw, s.Ci, s.Co) or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous bfloat16 [{s.kh}, {s.kw}, {s.Ci}, {s.Co}]")
     dx = torch.empty((B, s.H, s.W * s.Ci), dtype=torch.bfloat16, device=dz.device)
     with torch.cuda.device(dz.device):
+        # the kernel flips the HWIO weight in its taps and swaps Ci and Co
+        # as it loads it
         _launch(
             "dgrad", "ba3c_conv_block_dgrad",
-            dz.data_ptr(), wt.data_ptr(), dx.data_ptr(), B, s.H, s.W, s.Ci,
+            dz.data_ptr(), w.data_ptr(), dx.data_ptr(), B, s.H, s.W, s.Ci,
             s.Co, s.kh, s.kw, int(s.pool),
             torch.cuda.current_stream(dz.device).cuda_stream,
         )
@@ -478,9 +483,9 @@ def conv_block_wgrad(x, dz, dbpart, s: ConvSpec):
     db = torch.empty((s.Co,), dtype=torch.bfloat16, device=x.device)
     if B == 0:
         return dw.zero_(), db.zero_()
-    # the position split's partials: at most 4 per SM (kWgradCtasPerSm)
+    # one partial per cluster of two CTAs, at most one CTA per SM
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    part = torch.empty((4 * sms, _kp(s), s.Co), dtype=torch.float32, device=x.device)
+    part = torch.empty((sms, _kp(s), s.Co), dtype=torch.float32, device=x.device)
     dbpart = dbpart.contiguous()
     with torch.cuda.device(x.device):
         _launch(

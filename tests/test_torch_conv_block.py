@@ -404,15 +404,13 @@ def _a_pos(G, u0, units, WO, pitch, plane, f, row, par):
     return G.slot(uy, ux, pitch, plane)
 
 
-def _emulate_mainloop(x, w, s: ConvSpec, R: int, G=None, hin=None):
+def _emulate_mainloop(x, w, s: ConvSpec, R: int):
     """conv_block_kernel's loads and mainloop with band height R, item by
     item: yields (bi, r0, units, u0, acc), acc[f, j, chunk, lane, 4] the
     accumulators of every chunk u0 of the item. x as the kernel reads it
-    (uint8 or bf16 values) on its input grid ``hin`` (default s.H x s.W),
-    w bf16 values, G the geometry (default ``_Geom(s)``)."""
-    G = G or _Geom(s)
+    (uint8 or bf16 values), w bf16 values."""
+    G = _Geom(s)
     n, H, W = x.shape[0], s.H, s.W
-    Hin, Win = hin or (H, W)
     HO, WO = H // G.U, W // G.U
     NB = -(-HO // R)
     hwc, pitch = G.halo_cols(W), G.halo_pitch(W)
@@ -435,14 +433,14 @@ def _emulate_mainloop(x, w, s: ConvSpec, R: int, G=None, hin=None):
         # load_halo: rows r0*U - PH .., columns -PW .., zero outside
         hs = np.full(nrows * pitch * G.CS, np.nan)
         plane = ((nrows + 1) >> 1) * pitch
-        xs = x[bi].reshape(Hin, Win, G.CI).astype(np.float64)
+        xs = x[bi].reshape(H, W, G.CI).astype(np.float64)
         if s.scale_uint8:
             xs = _bf16(xs * scale)
         for hr in range(nrows):
             iy = r0 * G.U - G.PH + hr
             for hc in range(hwc):
                 ix = hc - G.PW
-                inside = 0 <= iy < Hin and 0 <= ix < Win
+                inside = 0 <= iy < H and 0 <= ix < W
                 p = G.slot(hr, hc, pitch, plane)
                 hs[p * G.CS: p * G.CS + G.CI] = xs[iy, ix] if inside else 0.0
         # conv_chunk for every chunk of the band at once

@@ -15,9 +15,12 @@ Two views of the three backward launches, both in numpy:
   bf16 ulp of an f32-summed oracle (the port's plain versions).
 - a lane-level emulation of the kernels' indexing, in the pattern of
   tests/test_torch_conv_block.py's ``_emulate_kernel``: the route epilogue's
-  window registers and db partials, the dgrad's swapped pads and block 2's
-  zero 21st row and column, the wgrad's pixel-pair halo, its tap split over
-  warps and CTAs and its position split, at ragged B and band heights.
+  window registers and db partials; the dgrad's weight panels laid out from
+  the forward's HWIO w (the flip in the load), its swapped pads and block
+  2's zero 21st row and column; the wgrad's swizzled dz tile, pixel-pair
+  halo, K split over a CTA's warpgroups, contiguous runs of items and
+  cluster sums; wgmma's descriptor reads and accumulator layout as modelled
+  by ``_desc_read`` and ``_epilogue_lanes``; at ragged B and band heights.
   Shared memory is filled with NaN, so a word the kernel must not read
   reaches the output.
 
@@ -450,40 +453,176 @@ def _dgrad_spec(s: ConvSpec) -> ConvSpec:
                     scale_uint8=False)
 
 
+def _frag16(a) -> np.ndarray:
+    """The m16 x k16 matrix of each warp from its lanes' registers [n, 32, 4,
+    2], in mma.sync's A layout (which wgmma takes for an A in registers,
+    warp w giving rows 16w .. 16w + 15 of the m64 tile): [n, 16, 16]."""
+    A = np.zeros((a.shape[0], 16, 16))
+    for i, (ro, ko) in enumerate([(0, 0), (8, 0), (0, 8), (8, 8)]):
+        for e in range(2):
+            A[:, _G + ro, 2 * _T + ko + e] = a[:, :, i, e]
+    return A
+
+
+#: a descriptor's layout -> (bytes of a swizzle row, mask of the row phase)
+_SWIZZLE = {1: (128, 7), 2: (64, 3)}
+
+
+def _desc_read(mem, start, lbo, sbo, layout, n, mn_major) -> np.ndarray:
+    """B [16, n] (k16 x N) as wgmma reads it from shared memory ``mem`` (bf16
+    values; byte address // 2) through a descriptor, by the canonical
+    layouts: groups of 8 rows SBO bytes apart, a row one swizzle row long;
+    K-major rows are n with k along the row, MN-major rows are k with n
+    along the row (MN panels LBO apart). The swizzle XORs an address's
+    16-byte chunk (bits 4-6) with its row phase (bits 7-9)."""
+    row, mask = _SWIZZLE[layout]
+    k, nn = np.arange(16)[:, None], np.arange(n)[None, :]
+    if mn_major:
+        per = row // 2
+        addr = start + (k // 8) * sbo + (k % 8) * row + (nn // per) * lbo + (nn % per) * 2
+    else:
+        addr = start + (nn // 8) * sbo + (nn % 8) * row + k * 2
+    return mem[(addr ^ (((addr >> 7) & mask) << 4)) // 2]
+
+
+def _epilogue_lanes(n_cols):
+    """wgmma's accumulator layout: for each register i and warp wl of the
+    warpgroup, the rows and columns its 32 lanes hold in the m64 x N tile."""
+    for i in range(n_cols // 2):
+        for wl in range(4):
+            yield (16 * wl + _G + 8 * ((i >> 1) & 1)), 8 * (i >> 2) + 2 * _T + (i & 1)
+
+
+class _DGeom:
+    """conv_block_bwd.cu's ``DGeom<G>``, G the dgrad's geometry (Co in, Ci
+    out, the swapped pads)."""
+
+    STAGES = 3
+
+    def __init__(self, s: ConvSpec):
+        self.G = G = _Geom(_dgrad_spec(s), ph=s.kh - 1 - s.ph, pw=s.kw - 1 - s.pw)
+        self.WGS = 3 if s.Ci == 32 else 2  # the entry point's choice: 3 for blocks 1-2
+        self.N = G.CO
+        self.KSTEPS = G.KP // 16
+        self.PANELS = -(-G.KP // 64)
+        self.PANEL = self.N * 128
+        self.W_BYTES = self.PANELS * self.PANEL
+        self.SB = G.CI * 2  # bytes of a halo slot (a dz pixel's channels)
+
+    def halo_rows(self, R):
+        return R + self.G.KH - 1
+
+    def stage_bytes(self, W, R):
+        return -(-self.halo_rows(R) * self.G.halo_cols(W) * self.SB // 1024) * 1024
+
+    def w_offset(self, k, n):
+        """Byte offset of B[k][n] (k a multiple of 8): K-major 64-wide
+        panels of N rows, the 16-byte chunks XORed with the row mod 8."""
+        return (k >> 6) * self.PANEL + n * 128 + ((((k & 63) >> 3) ^ (n & 7)) << 4)
+
+
+def _swizzled(slot, c, sb):
+    """conv_block_bwd.cu's ``swizzled<SB>``: the byte offset of 16-byte chunk
+    c of a slot of ``sb`` bytes in a TMA box laid out with that swizzle."""
+    phase = (slot & 7) if sb == 128 else ((slot >> 1) & 3)
+    return slot * sb + ((c ^ phase) << 4)
+
+
+def _tma_box(src, rows, cols, sb) -> np.ndarray:
+    """A TMA box as the kernels read it: pixel (hr, hc) of ``src`` [rows,
+    cols, C] (zeros already in place outside the tensor) at slot hr * cols
+    + hc, its 16-byte chunks swizzled; the rest of the stage NaN."""
+    mem = np.full(-(-rows * cols * sb // 1024) * 1024 // 2, np.nan)
+    for hr in range(rows):
+        for hc in range(cols):
+            for c in range(sb // 16):
+                o = _swizzled(hr * cols + hc, c, sb) // 2
+                mem[o: o + 8] = src[hr, hc, c * 8: c * 8 + 8]
+    return mem
+
+
+def _padded(a, r0, c0, rows, cols) -> np.ndarray:
+    """a [H, W, C] cut to rows r0 .. r0 + rows - 1 and columns c0 .. c0 +
+    cols - 1, zero outside: what a TMA box at (r0, c0) reads."""
+    out = np.zeros((rows, cols, a.shape[2]))
+    for hr in range(rows):
+        iy = r0 + hr
+        if 0 <= iy < a.shape[0]:
+            lo, hi = max(0, c0), min(a.shape[1], c0 + cols)
+            if lo < hi:
+                out[hr, lo - c0: hi - c0] = a[iy, lo:hi]
+    return out
+
+
+def _dgrad_weights(w, D: _DGeom) -> np.ndarray:
+    """The dgrad's weight panels as the kernel loads them from the forward's
+    HWIO w: B[k = (tap, c)][n] = w[KH-1-ky][KW-1-kx][n][c]."""
+    G = D.G
+    taps, CV = G.KH * G.KW, G.CI // 8
+    ws = np.full(D.W_BYTES // 2, np.nan)
+    wsrc = np.asarray(w).reshape(taps, D.N, G.CI)
+    for src_tap in range(taps):
+        for nn in range(D.N):
+            for v in range(CV):
+                o = D.w_offset((taps - 1 - src_tap) * G.CI + v * 8, nn) // 2
+                ws[o: o + 8] = wsrc[src_tap, nn, v * 8: v * 8 + 8]
+    return ws
+
+
 def _emulate_dgrad(dz, w, s: ConvSpec, R: int) -> np.ndarray:
-    """conv_block_kernel<Geom<kh, kw, Co, Ci, false, kh-1-ph, kw-1-pw>,
-    bf16, kStore> with band height R: dz's grid (Hd x Wd) is the input, the
-    forward's input grid (H x W) the output; the sums rounded to bf16."""
-    sd = _dgrad_spec(s)
-    G = _Geom(sd, ph=s.kh - 1 - s.ph, pw=s.kw - 1 - s.pw)
-    wt = w[::-1, ::-1].transpose(0, 1, 3, 2)  # the wrapper's flip
-    n = dz.shape[0]
-    dx = np.full((n, s.H * s.W, s.Ci), np.nan)
-    for bi, r0, units, u0, acc in _emulate_mainloop(dz.reshape(n, -1), wt, sd, R, G=G,
-                                                    hin=_dz_grid(s)):
-        for j in range(G.NJ):
-            co = 8 * j + 2 * _T
-            for f in range(2):
-                for h in range(2):
-                    u = u0[:, None] + f * 16 + h * 8 + _G
-                    ok = u < units
-                    cols = co[None].repeat(len(u0), 0)[ok]
-                    for e in range(2):
-                        dx[bi, r0 * s.W + u[ok], cols + e] = _bf16(acc[f, j, :, :, 2 * h + e])[ok]
-    return dx.reshape(n, s.H, s.W * s.Ci)
+    """dgrad_kernel with band height R: the weights laid out from the
+    forward's HWIO w (the tap flip and the Ci/Co swap in the load), each
+    item's dz halo (dz's grid Hd x Wd the input, the forward's input grid H
+    x W the output, pads k-1-(k-1)//2), each warpgroup's 64-position tiles
+    (A by ldmatrix from the halo, B through the K-major descriptor), and
+    the epilogue through wgmma's accumulator layout, rounded to bf16."""
+    D = _DGeom(s)
+    G = D.G
+    n, (Hd, Wd), H, W = dz.shape[0], _dz_grid(s), s.H, s.W
+    ws = _dgrad_weights(w, D)
+    bsteps = [_desc_read(ws, (ks >> 2) * D.PANEL + (ks & 3) * 32, 16, 1024, 1, D.N, False)
+              for ks in range(D.KSTEPS)]
+    hwc = G.halo_cols(W)
+    NB = -(-H // R)
+    dzv = dz.reshape(n, Hd, Wd, G.CI)
+    dx = np.full((n, H * W, D.N), np.nan)
+    for item in range(n * NB):
+        bi, r0 = item // NB, (item % NB) * R
+        rows = min(R, H - r0)
+        units = rows * W
+        # the TMA box: halo_rows(R) rows from r0 - PH, columns from -PW
+        hs = _tma_box(_padded(dzv[bi], r0 - G.PH, -G.PW, D.halo_rows(R), hwc),
+                      D.halo_rows(R), hwc, D.SB)
+        tiles = -(-units // 64)
+        # lane l of warp wl: position tile * 64 + 16 wl + (l & 15), chunk (l >> 4)
+        u = (np.arange(tiles)[:, None, None] * 64 + 16 * np.arange(4)[None, :, None]
+             + (_LANE & 15)[None, None, :]).reshape(-1, 32)
+        u = np.minimum(u, units - 1)
+        slot0 = (u // W) * hwc + u % W
+        acc = np.zeros((tiles, 64, D.N))
+        for ks in range(D.KSTEPS):
+            c, tap = ks % (G.CI // 16), ks // (G.CI // 16)
+            ky, kx = divmod(tap, G.KW)
+            a = _frag16(_ldsm(hs, _swizzled(slot0 + ky * hwc + kx, 2 * c + (_LANE >> 4), D.SB)))
+            acc += a.reshape(tiles, 64, 16) @ bsteps[ks]
+        for row, col in _epilogue_lanes(D.N):
+            uo = np.arange(tiles)[:, None] * 64 + row[None]
+            ok = uo < units
+            dx[bi, (r0 * W + uo)[ok], np.broadcast_to(col, uo.shape)[ok]] = _bf16(acc[:, row, col][ok])
+    return dx.reshape(n, H, W * D.N)
 
 
 _DGRAD = [("block1", 10, 3), ("block1", 6, 6), ("block2", 9, 2), ("block2", 11, 4),
-          ("block3", 7, 2)]
+          ("block3", 7, 2), ("block3", 10, 10), ("block1", 13, 5)]
 
 
 @pytest.mark.parametrize("name,size,R", _DGRAD, ids=[f"{n}-{hw}-R{r}" for n, hw, r in _DGRAD])
 def test_dgrad_emulated_matches_the_plain_input_gradient(name, size, R):
-    """The dgrad's indexing (the forward's mainloop with the pads swapped
-    to k-1-(k-1)//2, dz's grid as the input: block 2's pooled 9 -> 8 reads
-    the 9th row and column as 0) at B=3: every dx written, rel < 2e-2 and
-    >= 99.9% within one bf16 ulp of the port's plain dgrad (f32 sums) and
-    of the GEMM view."""
+    """The dgrad's indexing (the flipped weights laid out from HWIO w, the
+    pads swapped to k-1-(k-1)//2, dz's grid as the input: block 2's pooled
+    9 -> 8 reads the 9th row and column as 0; ragged 64-position tiles) at
+    B=3: every dx written, rel < 2e-2 and >= 99.9% within one bf16 ulp of
+    the port's plain dgrad (f32 sums) and of the GEMM view."""
     s = dataclasses.replace(SPECS[name], H=size, W=size)
     x, w, b, g = _tie_inputs(s, seed=500 + size + R, batch=3)
     w, b = _bf16(w), _bf16(b)
@@ -497,114 +636,185 @@ def test_dgrad_emulated_matches_the_plain_input_gradient(name, size, R):
         assert _ulp_share(got, ref) >= 0.999, name
 
 
+_DGRAD_JAX = [("block1", 6), ("block2", 4), ("block3", 10)]
+
+
+@pytest.mark.parametrize("name,R", _DGRAD_JAX, ids=[f"{n}-R{r}" for n, r in _DGRAD_JAX])
+def test_dgrad_emulated_from_hwio_w_matches_jax_input_gradient(name, R):
+    """At full frame size on tie inputs, the dgrad's emulation reading the
+    forward's HWIO w directly (no flipped copy) from JAX's own dz: equal to
+    the port's plain dgrad within one bf16 ulp (>= 99.9%), and within 2e-2
+    of max|ref| of JAX's input gradient (jax.vjp of conv_block, the Pallas
+    forward in interpret mode)."""
+    s = SPECS[name]
+    x, w, b, g = _tie_inputs(s, seed=700 + R, batch=B)
+    w, b = _bf16(w), _bf16(b)
+    _, dz = _jax_dz(x, w, b, g, s, False)
+    got = _emulate_dgrad(dz, w, s, R)
+    assert not np.isnan(got).any()
+    tdz = torch.from_numpy(dz).to(torch.bfloat16)
+    plain = dgrad_plain(tdz, torch.from_numpy(w).to(torch.bfloat16), s).float().numpy()
+    assert _ulp_share(got, plain) >= 0.999, name
+    js = _jax_spec(s)
+    ref = _jax_vjp(lambda xx, ww, bb: jconv.conv_block(xx, ww, bb, js, True), x, w, b, g, s)
+    assert _rel_err(got, ref["x"]) < REL_TOL, name
+
+
 class _WGeom:
     """conv_block_bwd.cu's ``WGeom<G>``, G the forward's geometry unpooled."""
 
+    STAGES = 3
+    CL = 2
+
     def __init__(self, s: ConvSpec):
         self.G = G = _Geom(dataclasses.replace(s, pool=False))
-        self.SS = 8 if G.ROW else G.CS
-        self.MH = 16 if G.ROW else 8
-        self.MF = 4 if G.CO == 32 else 2
-        self.NF = G.KP // 16
-        need = -(-self.NF // self.MF)
-        self.KG = -(-need // 8)
-        self.WARPS = -(-need // self.KG)
-        self.DS = G.WS
+        self.SB = 16 if G.ROW else G.CI * 2  # a pixel pair, or a TMA box's pixel
+        self.PAIRS = -(-s.kw // 2)  # row mode: pixel pairs a kernel row
+        self.CHUNKS = s.kh * self.PAIRS  # row mode: 8-row chunks of K
+        self.KP = -(-self.CHUNKS * 8 // 64) * 64 if G.ROW else G.KP
+        self.NF = self.KP // 16
+        self.TILES = -(-self.NF // 4)
+        self.WGS = min(3, self.TILES)
+        self.THREADS = 128 * self.WGS
+        self.TPW = -(-self.TILES // self.WGS)
+        self.AD = 3 if self.TPW <= 3 else 2
+        self.NACC = G.CO // 2
+        self.DROW = G.CO * 2
+        self.SWZ = 1 if G.CO == 64 else 2
+        self.KGROUP = 8 * self.DROW
 
-    @staticmethod
-    def tile_rows(Wd, R):
-        return -(-R * Wd // 16) * 16
+    def tile_pos(self, Wd, R):
+        """Positions a stage holds: whole rotations of the A ring (AD k16
+        steps)."""
+        return -(-R * Wd // (16 * self.AD)) * 16 * self.AD
+
+    def dz_bytes(self, Wd, R):
+        return self.tile_pos(Wd, R) * self.DROW
+
+    def halo_rows(self, R):
+        return R + self.G.KH - 1
+
+    def dz_offset(self, u, v):
+        """The dz tile's byte offset of position u, channels 8v .. 8v + 7."""
+        phase = (u & 7) if self.G.CO == 64 else ((u >> 1) & 3)
+        return u * self.DROW + ((v ^ phase) << 4)
+
+    def tap(self, mf, half, pitch):
+        """The rows of fragment mf's 8-row ``half``: (slot offset from a
+        position's slot, 16-byte chunk); ``pitch`` the halo's slots a row.
+        Row mode: chunk 2 mf + half, pixel pair p of kernel row ky."""
+        G = self.G
+        if G.ROW:
+            ky, p = divmod(min(2 * mf + half, self.CHUNKS - 1), self.PAIRS)
+            return ky * pitch + 2 * p, 0
+        tap, c = divmod(mf * 16, G.CI)
+        ky, kx = divmod(tap, G.KW)
+        return ky * pitch + kx, c // 8 + half
+
+    def kp_of(self, k):
+        """The K row of weight k = (ky * KW + kx) * CI + ci."""
+        G = self.G
+        if not G.ROW:
+            return k
+        ky, kx, ci = k // (G.KW * G.CI), k // G.CI % G.KW, k % G.CI
+        return (ky * self.PAIRS + kx // 2) * 8 + (kx % 2) * G.CI + ci
 
 
 def _emulate_wgrad(x, dz, dbpart, s: ConvSpec, R: int, P: int):
-    """wgrad_kernel with band height R and P position splits on KG * P
-    CTAs, then wgrad_reduce_kernel: (dw, db, part)."""
+    """wgrad_kernel with band height R on P clusters of CL CTAs, each CTA a
+    contiguous run of items with all of K (a stage: the swizzled dz tile,
+    then the x halo; A by ldmatrix.trans, B through the MN-major
+    descriptor), each CTA's sums through wgmma's accumulator layout, the
+    cluster's partial in rank order, then wgrad_reduce_kernel's fixed order:
+    (dw, db, part)."""
     WG = _WGeom(s)
     G = WG.G
     n, (Hd, Wd) = x.shape[0], _dz_grid(s)
     xv = _x_values(x, s)
-    hwc, pitch = G.halo_cols(Wd), G.halo_pitch(Wd)
+    hwc = G.halo_cols(Wd)
+    pitch = G.halo_pitch(Wd) if G.ROW else hwc  # the pair halo, or the TMA box
     NB = -(-Hd // R)
     dzf = dz.reshape(n, Hd * Wd, s.Co)
-    part = np.full((P, G.KP, s.Co), np.nan)
-    bw = (((_LANE & 7) + ((_LANE >> 3) & 1) * 8) * WG.DS + (_LANE >> 4) * 8) * 2
-    for cta in range(WG.KG * P):
-        kg, ps = cta % WG.KG, cta // WG.KG
-        acc = np.zeros((WG.WARPS, WG.MF, G.NJ, 32, 4))
-        for item in range(ps, n * NB, P):
+    grid, n_items = WG.CL * P, n * NB
+    # each fragment's rows, lane by lane: lanes (l >> 3) & 1 give the second 8
+    half = (_LANE >> 3) & 1
+    taps = [[WG.tap(min(mf, WG.NF - 1), h, pitch) for h in half] for mf in range(4 * WG.TILES)]
+    toff = np.array([[tp[0] for tp in row] for row in taps])
+    tch = np.array([[tp[1] for tp in row] for row in taps])
+    red = np.full((grid, WG.KP, s.Co), np.nan, np.float32)
+    for cta in range(grid):
+        acc = np.zeros((WG.TILES, 64, s.Co))
+        for item in range(n_items * cta // grid, n_items * (cta + 1) // grid):
             bi, r0 = item // NB, (item % NB) * R
             rows = min(R, Hd - r0)
             units = rows * Wd
-            nrows = rows + G.KH - 1
-            hs = np.full(nrows * pitch * WG.SS, np.nan)
-            for hr in range(nrows):
-                iy = r0 - G.PH + hr
-                for hc in range(hwc):
-                    for half in range(2 if G.ROW else 1):  # row mode: pixel pairs
-                        ix = hc - G.PW + half
-                        val = xv[bi, iy, ix] if 0 <= iy < s.H and 0 <= ix < s.W else 0.0
-                        at = (hr * pitch + hc) * WG.SS + half * 4
-                        hs[at: at + G.CI] = val
-            dzs = np.full(WG.tile_rows(Wd, R) * WG.DS, np.nan)
-            for u in range(WG.tile_rows(Wd, rows)):
-                dzs[u * WG.DS: u * WG.DS + s.Co] = dzf[bi, r0 * Wd + u] if u < units else 0.0
-            u0 = np.arange(0, units, 16)
-            fb = [_ldsm(dzs, bw[None] + (u0[:, None] * WG.DS + jj * 16) * 2, trans=True)
-                  for jj in range(G.NJ // 2)]
-            u = np.minimum(u0[:, None] + (_LANE >> 4) * 8 + (_LANE & 7), units - 1)
-            at = (((u // Wd) * pitch + u % Wd) * WG.SS + ((_LANE >> 3) & 1) * WG.MH) * 2
-            for warp in range(WG.WARPS):
-                mf0 = (kg * WG.WARPS + warp) * WG.MF
-                for i in range(WG.MF):
-                    mf = mf0 + i
-                    if mf >= WG.NF:
-                        continue
-                    if G.ROW:
-                        toff = ((mf >> 1) * pitch + (mf & 1) * 4) * WG.SS * 2
-                    else:
-                        tap, c = divmod(mf * 16, G.CI)
-                        ky, kx = divmod(tap, G.KW)
-                        toff = ((ky * pitch + kx) * WG.SS + c) * 2
-                    fa = _ldsm(hs, at + toff, trans=True)
-                    for jj in range(G.NJ // 2):
-                        for jn, (b0, b1) in enumerate([(0, 1), (2, 3)]):
-                            step = np.zeros((len(u0), 32, 4))
-                            _mma(step, fa, fb[jj][:, :, b0], fb[jj][:, :, b1])
-                            acc[warp, i, 2 * jj + jn] += step.sum(0)
-        for warp in range(WG.WARPS):
-            mf0 = (kg * WG.WARPS + warp) * WG.MF
-            for i in range(WG.MF):
-                if mf0 + i >= WG.NF:
-                    continue
-                for j in range(G.NJ):
-                    for h in range(2):
-                        kp = (mf0 + i) * 16 + _G + 8 * h
-                        for e in range(2):
-                            part[ps, kp, 8 * j + 2 * _T + e] = acc[warp, i, j, :, 2 * h + e]
-    # wgrad_reduce_kernel: every element's partials in order, in f32
-    k = np.arange(s.kh * s.kw * s.Ci)
-    kp = (k // (s.kw * s.Ci)) * G.KROW + k % (s.kw * s.Ci) if G.ROW else k
-    dw = np.zeros((k.size, s.Co), np.float32)
-    for p in range(P):
-        dw += part[p, kp].astype(np.float32)
-    db = np.zeros((s.Co,), np.float32)
-    for p in range(dbpart.shape[0]):
-        db += dbpart[p]
+            # the dz tile: the TMA box of R rows (zero past dz's last row), then
+            # zeros up to a whole k16 pair
+            tile = np.full(WG.dz_bytes(Wd, R) // 2, np.nan)
+            for u in range(WG.tile_pos(Wd, R)):
+                for v in range(s.Co // 8):
+                    o = WG.dz_offset(u, v) // 2
+                    tile[o: o + 8] = dzf[bi, r0 * Wd + u, v * 8: v * 8 + 8] if u < units else 0.0
+            if G.ROW:  # the pixel pairs (hc - PW, hc - PW + 1), expanded from x's rows
+                hs = np.full(WG.halo_rows(R) * pitch * 8, np.nan)
+                for hr in range(rows + G.KH - 1):
+                    iy = r0 - G.PH + hr
+                    for hc in range(hwc):
+                        for half in range(2):
+                            ix = hc - G.PW + half
+                            val = xv[bi, iy, ix] if 0 <= iy < s.H and 0 <= ix < s.W else 0.0
+                            at = (hr * pitch + hc) * 8 + half * 4
+                            hs[at: at + G.CI] = val
+            else:  # the TMA box: halo_rows(R) rows from r0 - PH, columns from -PW
+                hs = _tma_box(_padded(xv[bi], r0 - G.PH, -G.PW, WG.halo_rows(R), hwc),
+                              WG.halo_rows(R), hwc, WG.SB)
+            for ks in range(WG.tile_pos(Wd, rows) // 16):
+                u = np.minimum(ks * 16 + (_LANE >> 4) * 8 + (_LANE & 7), units - 1)
+                slot = ((u // Wd) * pitch + u % Wd)[None] + toff
+                at = slot * 16 if G.ROW else _swizzled(slot, tch, WG.SB)
+                a = _frag16(_ldsm(hs, at, trans=True))
+                bm = _desc_read(tile, ks * 16 * WG.DROW, WG.KGROUP, WG.KGROUP, WG.SWZ, s.Co, True)
+                acc += a.reshape(WG.TILES, 64, 16) @ bm
+        for tile in range(WG.TILES):
+            for row, col in _epilogue_lanes(s.Co):
+                kp = tile * 64 + row
+                ok = kp < WG.KP
+                red[cta, kp[ok], col[ok]] = acc[tile, row[ok], col[ok]]
+    part = np.zeros((P, WG.KP, s.Co), np.float32)
+    for c in range(P):
+        for r in range(WG.CL):  # rank order
+            part[c] += red[c * WG.CL + r]
+    # wgrad_reduce_kernel: 8 contiguous runs of the partials, each added in
+    # order, then the runs' sums in run order, in f32; db the same way
+    def in_runs(parts):
+        n = len(parts)
+        runs = [sum((parts[p] for p in range(n * r // 8, n * (r + 1) // 8)),
+                    np.zeros_like(parts[0])) for r in range(8)]
+        out = runs[0]
+        for r in runs[1:]:
+            out = out + r
+        return out
+
+    kp = np.array([WG.kp_of(k) for k in range(s.kh * s.kw * s.Ci)])
+    dw = in_runs([part[p, kp] for p in range(P)])
+    db = in_runs([dbpart[p].astype(np.float32) for p in range(dbpart.shape[0])])
     return _bf16(dw).reshape(s.kh, s.kw, s.Ci, s.Co), _bf16(db), part
 
 
 _WGRAD = [("block0_uint8", 10, 3, 2), ("block0", 9, 4, 3), ("block1", 10, 3, 2),
-          ("block2", 9, 8, 1), ("block2", 9, 3, 4), ("block3", 7, 2, 3)]
+          ("block2", 9, 8, 1), ("block2", 9, 3, 4), ("block3", 7, 2, 3),
+          ("block3", 10, 10, 1), ("block1", 12, 5, 3)]
 
 
 @pytest.mark.parametrize("name,size,R,P", _WGRAD,
                          ids=[f"{n}-{hw}-R{r}-P{p}" for n, hw, r, p in _WGRAD])
 def test_wgrad_emulated_matches_the_plain_weight_gradient(name, size, R, P):
     """The wgrad's indexing at B=3 (the pixel-pair halo of Ci = 4, K split
-    over warps and CTAs, positions over bands and P splits, the ragged last
-    k16 step, the fixed-order reduction): every partial written, dw rel <
-    2e-2 and >= 99.9% within one bf16 ulp of the port's plain wgrad (f32
-    sums) and of the GEMM view; db the partials' sum."""
+    over the warpgroups' m64 tiles, positions over bands and P clusters of
+    contiguous runs, the swizzled dz tile, the ragged last k16 pair, the
+    cluster sums and the fixed-order reduction): every partial written, dw
+    rel < 2e-2 and >= 99.9% within one bf16 ulp of the port's plain wgrad
+    (f32 sums) and of the GEMM view; db the partials' sum."""
     s = dataclasses.replace(SPECS[name], H=size, W=size)
     x, w, b, g = _tie_inputs(s, seed=600 + size + R, batch=3)
     w, b = _bf16(w), _bf16(b)
@@ -623,19 +833,85 @@ def test_wgrad_emulated_matches_the_plain_weight_gradient(name, size, R, P):
 
 
 def test_wgrad_split_covers_every_k_fragment_once():
-    """At full width: the K fragments, split MF per warp, WARPS per CTA and
-    KG CTAs along K, cover every fragment once, and the accumulators a
-    thread holds stay at 64 (the register budget)."""
+    """At full width: the K fragments, one a warp of an m64 tile, the tiles
+    round-robin over the CTA's warpgroups (no K split across CTAs; each
+    warpgroup compiled for its own count), cover every fragment once, and
+    block 0's chunks (pixel pairs of a kernel row) cover every real weight
+    once; the accumulators and the A fragments in flight that a thread
+    holds stay within the register budget of one CTA an SM (168 a thread
+    at 384 threads)."""
     for name in ("block0", "block1", "block2", "block3"):
-        WG = _WGeom(SPECS[name])
-        owned = [(kg * WG.WARPS + w) * WG.MF + i for kg in range(WG.KG)
-                 for w in range(WG.WARPS) for i in range(WG.MF)]
+        s = SPECS[name]
+        WG = _WGeom(s)
+        counts = [(WG.TILES - wg + WG.WGS - 1) // WG.WGS for wg in range(WG.WGS)]
+        assert set(counts) <= {WG.TPW, WG.TPW - 1} and sum(counts) == WG.TILES, name
+        owned = [(wg + WG.WGS * i) * 4 + wl for wg in range(WG.WGS) for i in range(counts[wg])
+                 for wl in range(4)]
         owned = [m for m in owned if m < WG.NF]
         assert sorted(owned) == list(range(WG.NF)), name
-        assert WG.WARPS <= 8 and WG.MF * WG.G.NJ * 4 == 64, name
-        assert WG.G.KP == cb._kp(SPECS[name]), name
-    assert [(_WGeom(SPECS[n]).KG, _WGeom(SPECS[n]).WARPS)
-            for n in ("block0", "block1", "block2", "block3")] == [(1, 3), (2, 7), (2, 8), (3, 6)]
+        assert WG.TPW * (WG.NACC + 4 * WG.AD) <= 136 and 65536 // WG.THREADS >= 168, name
+        assert WG.KP == cb._kp(s), name
+        kps = [WG.kp_of(k) for k in range(s.kh * s.kw * s.Ci)]
+        assert len(set(kps)) == len(kps) and max(kps) < WG.KP, name
+    assert [(_WGeom(SPECS[n]).TILES, _WGeom(SPECS[n]).TPW)
+            for n in ("block0", "block1", "block2", "block3")] == [(2, 1), (13, 5), (8, 3), (9, 3)]
+
+
+_ROUNDS = [("block1", u) for u in (1, 63, 64, 126, 252, 256, 441, 504)] + [
+    ("block3", u) for u in (30, 100, 300)]
+
+
+@pytest.mark.parametrize("name,units", _ROUNDS, ids=[f"{n}-{u}" for n, u in _ROUNDS])
+def test_dgrad_rounds_cover_every_tile_once(name, units):
+    """The dgrad's tiles: warpgroup wg takes the 64-position tiles wg, wg +
+    WGS, .. of a band; over the warpgroups every tile is taken once, and no
+    warpgroup takes more than one more than another."""
+    D = _DGeom(SPECS[name])
+    ntiles = -(-units // 64)
+    taken = [list(range(wg, ntiles, D.WGS)) for wg in range(D.WGS)]
+    assert sorted(t for ts in taken for t in ts) == list(range(ntiles))
+    assert max(map(len, taken)) - min(map(len, taken)) <= 1
+
+
+@pytest.mark.parametrize("name", ["block1", "block2", "block3"])
+def test_dgrad_weight_panels_read_back_the_flipped_weights(name):
+    """The dgrad's weight layout and its descriptors: over all k16 steps,
+    wgmma's reads of the panels written from HWIO w give B[k = (tap of the
+    flipped kernel, dz channel)][ci] = w[KH-1-ky][KW-1-kx][ci][co], each
+    weight read once."""
+    s = SPECS[name]
+    D = _DGeom(s)
+    G = D.G
+    w = np.arange(s.kh * s.kw * s.Ci * s.Co, dtype=np.float64).reshape(s.kh, s.kw, s.Ci, s.Co)
+    ws = _dgrad_weights(w, D)
+    got = np.concatenate([_desc_read(ws, (ks >> 2) * D.PANEL + (ks & 3) * 32, 16, 1024, 1,
+                                     D.N, False) for ks in range(D.KSTEPS)])
+    want = w[::-1, ::-1].transpose(0, 1, 3, 2).reshape(-1, s.Ci)
+    assert np.array_equal(got, want)
+    assert got.size == w.size == np.unique(got).size
+
+
+@pytest.mark.parametrize("name", ["block0", "block1", "block2", "block3"])
+def test_wgrad_dz_tile_reads_back_the_positions(name):
+    """The wgrad's dz tile (cp.async's 16-byte chunks at the swizzled
+    offsets) read through the MN-major descriptors of its k16 steps gives
+    dz's positions in order, every written element once; the tile and the
+    halo start on 1024-byte boundaries, as the swizzle's row phase needs."""
+    s = SPECS[name]
+    WG = _WGeom(s)
+    Hd, Wd = _dz_grid(s)
+    R = 3
+    npos = WG.tile_pos(Wd, R)
+    mem = np.full(WG.dz_bytes(Wd, R) // 2, np.nan)
+    vals = np.arange(npos * s.Co, dtype=np.float64).reshape(npos, s.Co)
+    for u in range(npos):
+        for v in range(s.Co // 8):
+            o = WG.dz_offset(u, v) // 2
+            mem[o: o + 8] = vals[u, v * 8: v * 8 + 8]
+    got = np.concatenate([_desc_read(mem, ks * 16 * WG.DROW, WG.KGROUP, WG.KGROUP, WG.SWZ,
+                                     s.Co, True) for ks in range(npos // 16)])
+    assert np.array_equal(got, vals)
+    assert WG.dz_bytes(Wd, R) % 1024 == 0
 
 
 # -- the wrappers and the entry points ----------------------------------------
