@@ -117,7 +117,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 #: the hand-written kernels' symbols, as a capture names them (mangled or
 #: not): a kernel event is filed under the first that its name contains
-OWN_KERNELS = ("wgrad_reduce_kernel", "wgrad_kernel", "dgrad_kernel", "conv_block_kernel")
+OWN_KERNELS = ("wgrad_reduce_kernel", "wgrad_kernel", "dgrad_kernel", "route_kernel",
+               "conv_block_kernel")
 
 
 def kernel_name(name: str) -> str:
@@ -434,6 +435,10 @@ def rounding_flips(x, w, b, s, dz, dz_ref, plain):
     off = off[rows]
     Hd, Wd = dz.shape[1:3]
     xs = x[rows]
+    if s.scale_uint8:  # the blocks' input: uint8 times bf16(1/255), rounded once
+        xs = xs.to(torch.bfloat16) * torch.tensor(1.0 / 255.0, dtype=torch.bfloat16,
+                                                  device=xs.device)
+        s = dataclasses.replace(s, scale_uint8=False)
     acc = _conv(xs, w, s, torch.float64)[:, :, :Hd, :Wd]
     delta = 16 * 2.0 ** -24 * _conv(xs.abs(), w.abs(), s, torch.float64)[:, :, :Hd, :Wd]
     bb = b.to(torch.bfloat16)[:, None, None]
@@ -544,7 +549,7 @@ def phase_bwd_kernels(dev, batches=BWD_BATCHES):
                 ok = all(checks.values())
                 log(f"[bwd] block{i} ({plain.__name__}) B={nb} {kind}: "
                     + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
-                    + f" dz-mismatch={dz_off:.2e}"
+                    + f" route flips={flips} dz-mismatch={dz_off:.2e}"
                     + (f" ({flips} elements, {'each a rounding flip' if explained else 'NOT at rounding'})"
                        if flips else "") + (" ok" if ok else
                     " FAIL " + ",".join(k for k, v in checks.items() if not v)))
@@ -557,9 +562,11 @@ def phase_bwd_kernels(dev, batches=BWD_BATCHES):
 
 
 def bwd_uint8_wgrad(dev, nb: int, worst: dict) -> None:
-    """Block 0's wgrad on uint8 frames (the kernel scales them by bf16(1/255)
-    as it lays its halo out) against its plain version on the route's own
-    dz, within REL_TOL, and a rerun bit-equal."""
+    """Block 0's route and wgrad on uint8 frames (the kernels scale them by
+    bf16(1/255) as they lay their halos out): the route's dz against
+    route_plain's under :func:`phase_bwd_kernels`' rule for random inputs,
+    the wgrad against its plain version on the route's own dz, within
+    REL_TOL, and a rerun bit-equal."""
     import torch
 
     from distributed_ba3c_tpu_torch.ops.conv_block import (
@@ -567,6 +574,7 @@ def bwd_uint8_wgrad(dev, nb: int, worst: dict) -> None:
         conv_block_route,
         conv_block_wgrad,
         flax_block,
+        route_plain,
         wgrad_plain,
     )
 
@@ -578,16 +586,22 @@ def bwd_uint8_wgrad(dev, nb: int, worst: dict) -> None:
     dw, db = conv_block_wgrad(x, dz, dbpart, s)
     again = conv_block_wgrad(x, dz, dbpart, s)
     dw_ref, db_ref = wgrad_plain(x, dz, dbpart, s)
+    dz_ref, _ = route_plain(x, w, b, gy, s, flax_block)
     torch.cuda.synchronize()
+    flips, explained = rounding_flips(x, w, b, s, dz, dz_ref, flax_block)
     rel = {"wgrad dw": _rel(dw, dw_ref), "wgrad db": _rel(db, db_ref)}
     equal = torch.equal(dw, again[0]) and torch.equal(db, again[1])
-    ok = all(v < REL_TOL for v in rel.values()) and equal
+    routed = explained and flips <= DZ_MISMATCH * dz.numel()
+    ok = all(v < REL_TOL for v in rel.values()) and equal and routed
+    worst["route"] = max(worst["route"], _abs(dz, dz_ref))
     worst["wgrad"] = max(worst["wgrad"], _abs(dw, dw_ref), _abs(db, db_ref))
     log(f"[bwd] block0_uint8 (flax_block) B={nb} random: "
         + " ".join(f"{k}={v:.3e}" for k, v in rel.items())
-        + (" ok" if ok else " FAIL" + ("" if equal else " rerun not bit-equal")))
+        + f" route flips={flips}" + (" (each a rounding flip)" if flips and explained else "")
+        + (" ok" if ok else " FAIL" + ("" if equal else " rerun not bit-equal")
+           + ("" if routed else " route dz")))
     if not ok:
-        raise AssertionError(f"block 0's uint8 wgrad disagrees at B={nb}")
+        raise AssertionError(f"block 0's uint8 route or wgrad disagrees at B={nb}")
 
 
 def bwd_calls(x, w, b, gy, s, plain, x_grad: bool):
@@ -627,11 +641,21 @@ def bwd_calls(x, w, b, gy, s, plain, x_grad: bool):
     return dz, dbpart, calls
 
 
+def route_bound(x, w, b, gy, s, nb: int) -> dict:
+    """:func:`bound` of one route call: x, w, b and g read once and dz
+    written once; the operations of the pre-pool positions dz holds."""
+    Hd, Wd = (2 * s.Ho, 2 * s.Wo) if s.pool else (s.H, s.W)
+    n_dz = 2 * nb * Hd * Wd * s.Co
+    n_bytes = x.numel() * x.element_size() + 2 * (w.numel() + b.numel() + gy.numel()) + n_dz
+    return bound(n_bytes, nb * needed_flops(s))
+
+
 def phase_bwd_times(dev, nb: int) -> dict:
     """Each backward kernel's time per block at batch ``nb`` on random
     inputs, and the library's for the same function: {block: {call:
     {"ms": CUDA events around the wrapper, "device_ms": the profiler's
-    kernel time, "by_kernel": ...}}}."""
+    kernel time, "by_kernel": ...}}}; the route's also with its bound
+    (:func:`route_bound`) and its device time's share of it."""
     saved = launch_counts()
     out = {}
     for i, s, plain, x_grad in vjp_cases():
@@ -639,9 +663,16 @@ def phase_bwd_times(dev, nb: int) -> dict:
         _, _, calls = bwd_calls(x, w, b, gy, s, plain, x_grad)
         dev_t = device_times(calls)
         out[f"block{i}"] = {k: {"ms": time_ms(fn, iters=10), **dev_t[k]} for k, fn in calls.items()}
+        route = out[f"block{i}"]["route"]
+        route.update(route_bound(x, w, b, gy, s, nb))
+        route["bound_share"] = (None if route["device_ms"] is None
+                                else route["bound_ms"] / route["device_ms"])
         log(f"[kernel-times] block{i} backward at B={nb}: " + ", ".join(
             f"{k} {v['ms']:.4f} ms (device {_ms(v['device_ms'])})"
-            for k, v in out[f"block{i}"].items()))
+            for k, v in out[f"block{i}"].items())
+            + f"; route bound {route['bound_ms']:.4f} ms ({route['bound_by']}), "
+            + ("share not measured" if route["bound_share"] is None
+               else f"{100 * route['bound_share']:.1f}% of it on device time"))
     set_launch_counts(saved)
     return out
 
@@ -1007,7 +1038,7 @@ def phase_vjp(dev, states, rules: str = "xla", detail: bool = True):
         plains = {"route": lambda: route_plain(x, w, b, gy, s, plain),
                   "wgrad": lambda: wgrad_plain(x, dz, dbpart, s),
                   "dgrad": lambda: dgrad_plain(dz, w, s)}
-        n_bytes = {"route": n_x + 2 * (w.numel() + b.numel() + gy.numel()) + n_dz,
+        n_bytes = {"route": route_bound(x, w, b, gy, s, nb)["bytes"],
                    "wgrad": n_x + n_dz + 2 * (w.numel() + b.numel()),
                    "dgrad": n_dz + 2 * w.numel() + n_x}
         kern = {}
@@ -2381,18 +2412,18 @@ HOP_ROLE = {"env_step": "master", "wire": "master", "master_ingest": "master",
 TRACE_BRANCHES = {"predict_dispatch": "master_ingest", "predict_fetch": "predict_dispatch",
                   "staging_wait": "queue_wait"}
 #: the hand-written kernels as a capture names them, and the wrappers
-#: whose launches each symbol counts (the forward and the route run the one
-#: conv_block_kernel mainloop with two epilogues; a dgrad launch is its
-#: dgrad_kernel; a wgrad launch is its wgrad_kernel and then its
-#: wgrad_reduce_kernel)
+#: whose launches each symbol counts (a forward launch is its
+#: conv_block_kernel, a route its route_kernel, a dgrad its dgrad_kernel;
+#: a wgrad launch is its wgrad_kernel and then its wgrad_reduce_kernel)
 KERNEL_SYMBOLS = {"wgrad_reduce_kernel": ("conv_block_wgrad",),
                   "wgrad_kernel": ("conv_block_wgrad",),
                   "dgrad_kernel": ("conv_block_dgrad",),
-                  "conv_block_kernel": ("conv_block_fwd", "conv_block_route")}
-#: the capture's kernel events a sync learner step (B=128): 4 forwards and
-#: 4 routes, 3 dgrads, 4 wgrads of two kernels each
+                  "route_kernel": ("conv_block_route",),
+                  "conv_block_kernel": ("conv_block_fwd",)}
+#: the capture's kernel events a sync learner step (B=128): 4 forwards, 4
+#: routes, 3 dgrads, 4 wgrads of two kernels each
 STEP_KERNEL_EVENTS = {"wgrad_reduce_kernel": 4, "wgrad_kernel": 4, "dgrad_kernel": 3,
-                      "conv_block_kernel": 8}
+                      "route_kernel": 4, "conv_block_kernel": 4}
 
 
 def trace_chain(flush: str) -> tuple:

@@ -76,9 +76,9 @@
 // warp specialisation and a double-buffered halo.
 //
 // The geometry, the loaders, the mainloop and the launch live in
-// conv_block.cuh, shared with the backward (conv_block_bwd.cu), whose
-// route recomputes the forward's sums with this mainloop and whose dgrad
-// is this mainloop over dz with the flipped weights.
+// conv_block.cuh. The backward (conv_block_bwd.cu) has kernels of its own:
+// its route recomputes these sums with wgmma in the same k16 steps, in
+// the same order.
 //
 // Only the four BA3C blocks are instantiated, at any H and W: (kh, kw, Ci,
 // Co, pool) = (5, 5, 4, 32, pooled) with a uint8 or bf16 input, (5, 5, 32,
@@ -110,8 +110,7 @@ extern "C" int ba3c_conv_block_fwd(const void* x, int x_uint8, const void* w,
   const auto fwd = [&](auto geom, auto in) {
     using G = decltype(geom);
     using TIn = decltype(in);
-    return launch<G, TIn, kForward>(x, w, b, y, B, H, W, H, W, scale, RouteArgs{}, 0,
-                                    nullptr, s);
+    return launch<G, TIn>(x, w, b, y, B, H, W, scale, s);
   };
   if (is(5, 4, 32, true)) {
     using G = Geom<5, 5, 4, 32, true>;

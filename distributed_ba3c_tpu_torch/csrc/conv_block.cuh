@@ -1,8 +1,9 @@
-// The implicit-GEMM conv mainloop shared by the BA3C conv-block kernels:
-// conv_block.cu (the forward) and conv_block_bwd.cu (the backward's
-// recompute-and-route and dgrad launches). conv_block.cu's header describes
-// the design; this file holds the geometry, the halo loader, the mainloop
-// and its three epilogues, and the launch with its band-height cost model.
+// The forward BA3C conv block's implicit-GEMM kernel (conv_block.cu's
+// header describes the design): the geometry, the halo loader, the
+// mainloop and its epilogue, and the launch with its band-height cost
+// model. conv_block_bwd.cu includes it for Geom, the shared-memory and
+// tensor-core helpers, pre_act and device_info; the backward's kernels
+// are its own.
 
 #pragma once
 
@@ -68,22 +69,6 @@ struct Geom {
     return CO * 4 + size_t(KP) * WS * 2 +
            size_t(R * U + KH - 1) * halo_pitch(W) * CS * 2;
   }
-};
-
-// What the mainloop's epilogue makes of the pre-bias sums acc
-enum Epi : int {
-  kForward = 0,  // y = maxpool2x2?(relu(bf16(bf16(acc) + b)))
-  kRoute = 1,    // the same z = bf16(bf16(acc) + b), then dz = the cotangent
-                 // of acc: g routed back through the pool and the relu
-  kStore = 2,    // y = bf16(acc) (the dgrad: no bias, relu or pool)
-};
-
-// The route epilogue's operands (kRoute only)
-struct RouteArgs {
-  const bf16* g = nullptr;  // the cotangent of y, [B, HO, WO, CO]
-  bf16* dz = nullptr;       // [B, U*HO, U*WO, CO]
-  float* dbpart = nullptr;  // [gridDim.x, CO]: each CTA's f32 sums of its dz
-  int flax = 0;             // tie rule: 0 reference_block's, 1 flax's
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -200,57 +185,12 @@ __device__ __forceinline__ float bias_relu(float acc, float bias) {
   return fmaxf(pre_act(acc, bias), 0.f);
 }
 
-// relu'(z): reference_block's maximum(z, 0) gives 1/2 at z == 0, flax's
-// relu 0
-__device__ __forceinline__ float relu_grad(float z, int flax) {
-  return z > 0.f ? 1.f : (z == 0.f && !flax ? 0.5f : 0.f);
-}
-
-// The cotangent gv of a pool window's max, routed to its four positions
-// q = 2 * row + column, through the pool and the relu. Every factor is a
-// power of two, so each share is exact in bf16.
-__device__ __forceinline__ void pool_route(const float (&z)[4], float gv, int flax,
-                                           float (&d)[4]) {
-  float r[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) r[q] = fmaxf(z[q], 0.f);
-  if (flax) {
-    // F.max_pool2d / nn.max_pool: all of it to the first maximum, row-major
-    const float m = fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3]));
-    const int first = r[0] == m ? 0 : r[1] == m ? 1 : r[2] == m ? 2 : 3;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) d[q] = q == first ? gv * relu_grad(z[q], 1) : 0.f;
-  } else {
-    // reference_block's nested max, the column pair of each window row
-    // first, then the two rows; each max splits its cotangent evenly
-    // among its tied arguments
-    const float m0 = fmaxf(r[0], r[1]), m1 = fmaxf(r[2], r[3]);
-    const float M = fmaxf(m0, m1);
-    const float rs = m0 == M && m1 == M ? 0.5f : 1.f;
-    const float m[2] = {m0, m1};
-#pragma unroll
-    for (int f = 0; f < 2; ++f) {
-      const float gr = m[f] == M ? gv * rs : 0.f;
-      const float cs = r[2 * f] == m[f] && r[2 * f + 1] == m[f] ? 0.5f : 1.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = 2 * f + h;
-        d[q] = r[q] == m[f] ? gr * cs * relu_grad(z[q], 0) : 0.f;
-      }
-    }
-  }
-}
-
-// One warp: output units u0 .. u0 + UPC - 1 of the band (those < units).
-// yb is the band's output (kForward, kStore); gb and dzb its cotangent and
-// its dz (kRoute), and dbs the thread's running sums of its dz channels.
-template <class G, int EPI>
+// One warp: output units u0 .. u0 + UPC - 1 of the band (those < units),
+// into yb, the band's output.
+template <class G>
 __device__ __forceinline__ void conv_chunk(const bf16* ws, const bf16* hs,
                                            const float* bias,
-                                           bf16* __restrict__ yb,
-                                           const bf16* __restrict__ gb,
-                                           bf16* __restrict__ dzb, int flax,
-                                           float (&dbs)[G::NJ][2], int u0,
+                                           bf16* __restrict__ yb, int u0,
                                            int units, int WO, int pitch,
                                            int plane) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -362,19 +302,7 @@ __device__ __forceinline__ void conv_chunk(const bf16* ws, const bf16* hs,
 #pragma unroll
   for (int j = 0; j < G::NJ; ++j) {
     const int co = 8 * j + 2 * t;
-    if constexpr (EPI == kStore) {
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int u = u0 + f * 16 + h * 8 + g;
-          if (u < units) {
-            *reinterpret_cast<uint32_t*>(yb + size_t(u) * G::CO + co) =
-                pack_bf16x2(acc[f][j][2 * h], acc[f][j][2 * h + 1]);
-          }
-        }
-      }
-    } else if constexpr (EPI == kForward && G::POOL) {
+    if constexpr (G::POOL) {
       const float bj[2] = {bias[co], bias[co + 1]};
       const int u = u0 + g;
       if (u < units) {
@@ -390,7 +318,7 @@ __device__ __forceinline__ void conv_chunk(const bf16* ws, const bf16* hs,
         }
         *reinterpret_cast<uint32_t*>(yb + size_t(u) * G::CO + co) = pack_bf16x2(m0, m1);
       }
-    } else if constexpr (EPI == kForward) {
+    } else {
       const float bj[2] = {bias[co], bias[co + 1]};
 #pragma unroll
       for (int f = 0; f < 2; ++f) {
@@ -404,63 +332,18 @@ __device__ __forceinline__ void conv_chunk(const bf16* ws, const bf16* hs,
           }
         }
       }
-    } else if constexpr (G::POOL) {  // kRoute, pooled: the window in registers
-      const float bj[2] = {bias[co], bias[co + 1]};
-      const int u = u0 + g;
-      if (u < units) {
-        const int uy = u / WO, ux = u - uy * WO;
-        const __nv_bfloat162 gp =
-            *reinterpret_cast<const __nv_bfloat162*>(gb + size_t(u) * G::CO + co);
-        const float gv[2] = {__low2float(gp), __high2float(gp)};
-        float d[2][4];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float z[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) z[q] = pre_act(acc[q >> 1][j][2 * (q & 1) + e], bj[e]);
-          pool_route(z, gv[e], flax, d[e]);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const size_t at = (size_t(2 * uy + (q >> 1)) * (2 * WO) + 2 * ux + (q & 1)) * G::CO;
-          *reinterpret_cast<uint32_t*>(dzb + at + co) = pack_bf16x2(d[0][q], d[1][q]);
-          dbs[j][0] += d[0][q];
-          dbs[j][1] += d[1][q];
-        }
-      }
-    } else {  // kRoute, not pooled
-      const float bj[2] = {bias[co], bias[co + 1]};
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int u = u0 + f * 16 + h * 8 + g;
-          if (u < units) {
-            const __nv_bfloat162 gp =
-                *reinterpret_cast<const __nv_bfloat162*>(gb + size_t(u) * G::CO + co);
-            const float d0 = __low2float(gp) * relu_grad(pre_act(acc[f][j][2 * h], bj[0]), flax);
-            const float d1 =
-                __high2float(gp) * relu_grad(pre_act(acc[f][j][2 * h + 1], bj[1]), flax);
-            *reinterpret_cast<uint32_t*>(dzb + size_t(u) * G::CO + co) = pack_bf16x2(d0, d1);
-            dbs[j][0] += d0;
-            dbs[j][1] += d1;
-          }
-        }
-      }
     }
   }
 }
 
 // Grid-stride over work items (sample, band of R output rows); NB bands a
-// sample. The conv's output grid is H x W (before the pool); its input is
-// Hin x Win (the forward: H x W; the dgrad: dz's grid). Shared memory: bias
-// [CO] f32, weights [KP][WS], halo.
-template <class G, typename TIn, int EPI>
+// sample. The conv's output grid is H x W (before the pool). Shared memory:
+// bias [CO] f32, weights [KP][WS], halo.
+template <class G, typename TIn>
 __global__ void __launch_bounds__(kThreads)
     conv_block_kernel(const TIn* __restrict__ x, const bf16* __restrict__ w,
                       const bf16* __restrict__ b, bf16* __restrict__ y, int B,
-                      int H, int W, int Hin, int Win, int R, int NB, float scale,
-                      RouteArgs rt) {
+                      int H, int W, int R, int NB, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* bias = reinterpret_cast<float*>(smem);
   bf16* ws = reinterpret_cast<bf16*>(smem + G::CO * 4);
@@ -468,9 +351,7 @@ __global__ void __launch_bounds__(kThreads)
   const int HO = H / G::U, WO = W / G::U;
   const int hwc = G::halo_cols(W), pitch = G::halo_pitch(W);
 
-  if constexpr (EPI != kStore) {
-    for (int i = threadIdx.x; i < G::CO; i += kThreads) bias[i] = __bfloat162float(b[i]);
-  }
+  for (int i = threadIdx.x; i < G::CO; i += kThreads) bias[i] = __bfloat162float(b[i]);
   // the weights once per CTA, waited for with the first halo; row mode
   // pads each kernel row's kw*Ci values to KROW with zeros
   constexpr int WV = G::CO / 8;
@@ -486,9 +367,6 @@ __global__ void __launch_bounds__(kThreads)
     cp_async<16>(ws + kp * G::WS + v * 8, w + size_t(src) * G::CO + v * 8, valid);
   }
 
-  float dbs[G::NJ][2];
-#pragma unroll
-  for (int j = 0; j < G::NJ; ++j) dbs[j][0] = dbs[j][1] = 0.f;
   const int n_items = B * NB;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int bi = item / NB, r0 = (item - bi * NB) * R;
@@ -497,45 +375,14 @@ __global__ void __launch_bounds__(kThreads)
     const int nrows = rows * G::U + G::KH - 1;
     const int plane = ((nrows + 1) >> 1) * pitch;  // where split odd rows start
     __syncthreads();  // the previous item's reads of the halo are done
-    load_halo<G>(x + size_t(bi) * Hin * Win * G::CI, hs, Hin, Win, r0 * G::U - G::PH,
-                 nrows, hwc, pitch, plane, scale);
+    load_halo<G>(x + size_t(bi) * H * W * G::CI, hs, H, W, r0 * G::U - G::PH, nrows, hwc,
+                 pitch, plane, scale);
     cp_async_wait_all();
     __syncthreads();
-    const size_t band = (size_t(bi) * HO + r0) * WO * G::CO;
-    bf16* yb = EPI == kRoute ? nullptr : y + band;
-    const bf16* gb = EPI == kRoute ? rt.g + band : nullptr;
-    bf16* dzb = EPI == kRoute ? rt.dz + band * G::U * G::U : nullptr;
+    bf16* yb = y + (size_t(bi) * HO + r0) * WO * G::CO;
     const int nchunks = (units + G::UPC - 1) / G::UPC;
     for (int c = threadIdx.x >> 5; c < nchunks; c += kWarps) {
-      conv_chunk<G, EPI>(ws, hs, bias, yb, gb, dzb, rt.flax, dbs, c * G::UPC, units, WO,
-                         pitch, plane);
-    }
-  }
-
-  if constexpr (EPI == kRoute) {
-    // the CTA's db partial: over the 8 lanes that hold the same channels,
-    // then over the warps, each in a fixed order
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int j = 0; j < G::NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) dbs[j][e] += __shfl_xor_sync(0xffffffffu, dbs[j][e], o);
-    __syncthreads();  // every warp is done with the halo; it takes the sums
-    float* red = reinterpret_cast<float*>(hs);
-    if (lane < 4) {
-#pragma unroll
-      for (int j = 0; j < G::NJ; ++j) {
-        red[warp * G::CO + 8 * j + 2 * lane] = dbs[j][0];
-        red[warp * G::CO + 8 * j + 2 * lane + 1] = dbs[j][1];
-      }
-    }
-    __syncthreads();
-    for (int c = threadIdx.x; c < G::CO; c += kThreads) {
-      float s = 0.f;
-      for (int wi = 0; wi < kWarps; ++wi) s += red[wi * G::CO + c];
-      rt.dbpart[size_t(blockIdx.x) * G::CO + c] = s;
+      conv_chunk<G>(ws, hs, bias, yb, c * G::UPC, units, WO, pitch, plane);
     }
   }
 }
@@ -582,19 +429,16 @@ int device_info(Kernel kernel, int threads, DeviceInfo* out) {
 // The launch: picks the band height R that minimises a cost model (whole
 // warp rounds per band plus a halo load, spread over the CTAs that fit on
 // the card, never below one band's time), then launches one CTA per
-// resident slot or per item, whichever is fewer, and at most max_grid
-// (> 0). *grid_out, when given, takes the grid launched.
-template <class G, typename TIn, int EPI>
-int launch(const void* x, const void* w, const void* b, void* y, int B, int H,
-           int W, int Hin, int Win, float scale, const RouteArgs& rt, int max_grid,
-           int* grid_out, cudaStream_t stream) {
-  const auto kernel = conv_block_kernel<G, TIn, EPI>;
+// resident slot or per item, whichever is fewer.
+template <class G, typename TIn>
+int launch(const void* x, const void* w, const void* b, void* y, int B, int H, int W,
+           float scale, cudaStream_t stream) {
+  const auto kernel = conv_block_kernel<G, TIn>;
   DeviceInfo d;
-  using Tag = std::tuple<G, TIn, std::integral_constant<int, EPI>>;
+  using Tag = std::tuple<G, TIn>;
   if (const int e = device_info<Tag>(kernel, kThreads, &d)) return e;
 
   const int HO = H / G::U, WO = W / G::U;
-  if (grid_out) *grid_out = 0;
   if (HO == 0 || WO == 0) return 0;
   auto band_cost = [&](int rows) {
     const int chunks = (rows * WO + G::UPC - 1) / G::UPC;
@@ -622,13 +466,10 @@ int launch(const void* x, const void* w, const void* b, void* y, int B, int H,
   const int NB = (HO + best_r - 1) / best_r;
   const long long items = static_cast<long long>(B) * NB;
   if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  long long grid = std::min<long long>(items, best_slots);
-  if (max_grid > 0) grid = std::min<long long>(grid, max_grid);
+  const long long grid = std::min<long long>(items, best_slots);
   kernel<<<static_cast<int>(grid), kThreads, G::smem_bytes(W, best_r), stream>>>(
-      static_cast<const TIn*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(b), static_cast<bf16*>(y), B, H, W, Hin, Win, best_r, NB,
-      scale, rt);
-  if (grid_out) *grid_out = static_cast<int>(grid);
+      static_cast<const TIn*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(b),
+      static_cast<bf16*>(y), B, H, W, best_r, NB, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,14 +7,14 @@
 // dW/dx GEMMs") was never built there. With g the bf16 cotangent of
 // y = maxpool2x2?(relu(z)), z = bf16(bf16(acc) + b), acc = conv_SAME(x, W):
 //
-//  (a) route (ba3c_conv_block_route): the forward's mainloop (conv_block.cuh)
-//      recomputes acc with the forward's own sums, so z is bit-identical to
-//      the forward's, and a second epilogue routes g back through the pool
-//      and the relu in registers: the pooled layout puts a whole window in
-//      one thread's accumulators. It writes dz, the cotangent of acc, at
-//      pre-pool resolution [B, U*Ho, U*Wo, Co] (block 2's 21st pre-pool row
-//      and column are never formed: dz has 20 x 20, and the readers take
-//      what lies outside as 0), and each CTA's f32 sums of dz (db partials).
+//  (a) route (ba3c_conv_block_route, route_kernel): recomputes acc with
+//      wgmma in the forward's k16 steps and order, so z matches the
+//      forward's, and routes g back through the pool and the relu in
+//      registers: a tile pair puts a whole pool window in one thread's
+//      accumulators. It writes dz, the cotangent of acc, at pre-pool
+//      resolution [B, U*Ho, U*Wo, Co] (block 2's 21st pre-pool row and
+//      column are never formed: dz has 20 x 20, and the readers take what
+//      lies outside as 0), and each CTA's f32 sums of dz (db partials).
 //      Tie rules: reference_block's (relu'(0) = 1/2; the nested max splits
 //      a tie evenly: the column pair of each window row, then the rows) or
 //      flax's (relu'(0) = 0; a window's whole cotangent to its first
@@ -76,9 +76,12 @@
 //    2 KB a 64 x 16 tile, beside B's 1-2 KB, so shared-memory bandwidth
 //    binds before the tensor cores do (a loop of only ldmatrix and wgmma
 //    reaches about 55% of the dense rate on an H100; PERF.md).
-//  - Left for later: the route is untouched (the forward's mainloop with
-//    mma.sync); fusing it into block 0's wgrad would keep block 0's dz out
-//    of device memory, and its dz stores are 4 bytes a thread.
+//  - The route (route_kernel, its section below) is built from the same
+//    parts: a TMA ring, ldmatrix-fed wgmma with no branch between the
+//    products, dz out through a shared-memory box and a TMA store.
+//  - Left for later: block 0's dz (1.16 GB at B=2560) still goes through
+//    device memory from the route to the wgrad; fusing the two, or a
+//    compact dz, would keep it on chip (ROADMAP S3c).
 //
 // Instantiated for the four BA3C blocks, at any H and W, as the forward
 // (ops/conv_block.py: KERNEL_GEOMETRIES; the dgrad for blocks 1-3 only,
@@ -292,8 +295,11 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // A map over a channels-last bf16 tensor [n, h, w, c] (c * 2 = 64 or 128
-// bytes a pixel, that many bytes' swizzle), boxes of [1, bh, bw, c]
-int nhwc_map(CUtensorMap* map, const void* base, int n, int h, int w, int c, int bw, int bh) {
+// bytes a pixel, that many bytes' swizzle), boxes of [1, bh, bw, c]; with
+// a traversal stride, every stride-th row and column from the box's
+// corner (a box then spans bh * stride rows and bw * stride columns)
+int nhwc_map(CUtensorMap* map, const void* base, int n, int h, int w, int c, int bw, int bh,
+             int stride = 1) {
   static EncodeTiled encode = nullptr;
   static int status = -1;
   static std::once_flag once;
@@ -309,18 +315,670 @@ int nhwc_map(CUtensorMap* map, const void* base, int n, int h, int w, int c, int
   });
   if (status) return status;
   if (c * 2 != 64 && c * 2 != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (bw > 256 || bh > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (bw * stride > 256 || bh * stride > 256 || stride < 1 || stride > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cuuint64_t dims[4] = {cuuint64_t(c), cuuint64_t(w), cuuint64_t(h), cuuint64_t(n)};
   const cuuint64_t strides[3] = {cuuint64_t(c) * 2, cuuint64_t(w) * c * 2,
                                  cuuint64_t(h) * w * c * 2};
-  const cuuint32_t box[4] = {cuuint32_t(c), cuuint32_t(bw), cuuint32_t(bh), 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(c), cuuint32_t(bw * stride), cuuint32_t(bh * stride), 1};
+  const cuuint32_t steps[4] = {1, cuuint32_t(stride), cuuint32_t(stride), 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, one,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, steps,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       c * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// (a) route
+//
+// route_kernel replaces the recompute that _cb_bwd (pallas_conv.py:351-356)
+// leaves to XLA: z = bf16(bf16(conv_SAME(x, W)) + b) recomputed, then g
+// routed back through the pool and the relu into dz, and the bias
+// gradient's f32 partial sums. What bounds it on an H100 (chip_smoke.py's
+// count: x, w, b and g read once, dz written once): block 0 by bytes (its
+// dz alone is 1.16 GB at B=2560, 0.345 ms of a 0.43-0.45 ms bound), block 1
+// by operations, blocks 2-3 by bytes. The design:
+//
+//  - Persistent CTAs walk a contiguous run of (sample, band of R output
+//    rows) items through a ring of three stages. A producer warp (block 0:
+//    a producer warpgroup) fills a stage with TMA: the x halo and the
+//    band's g as tensor-map boxes (block 0: x's rows whole by bulk copy,
+//    two items ahead, expanded by the producers to pixel pairs, uint8
+//    scaled by bf16(1/255) with one rounding), and, once every consumer
+//    warp is done with a band, stores its dz with one TMA store from a
+//    shared-memory staging box [U * R rows, Wd, Co], swizzled as
+//    WGeom::dz_offset reads it (rows past dz's last are clipped by the
+//    map). No consumer spends a register or an instruction on a global
+//    copy, and dz leaves in whole boxes; block 0 keeps three boxes, so two
+//    stores can be in flight.
+//  - The consumer warpgroups (three; two for block 2) take the band's
+//    tiles round-robin, counted across the CTA's items so the warpgroups
+//    stay even. A pooled tile is a pair of m64 tiles over 32 pool windows:
+//    tile 0 their top pre-pool rows, tile 1 their bottom ones; warp w's
+//    accumulator rows g and g + 8 are the left and right columns of window
+//    8w + g, so each thread holds a whole window of its channels, and the
+//    pool and relu route in registers (pool_route). Block 3's tile is 64
+//    consecutive positions.
+//  - The products: wgmma.m64nCOk16 with A from the halo by ldmatrix two k
+//    steps ahead and B = the weights [K][Co] through a descriptor (the
+//    forward's HWIO w as it is, MN-major: Co is w's contiguous axis), in
+//    the forward's k16 steps and order: (ky, kx, 16 channels), or for
+//    Ci = 4 kernel rows padded to 32 (10 steps), so each step sums the
+//    same bf16 products as the forward's mma.sync step. Tile 1's A at
+//    kernel row ky is tile 0's at ky + 1, so each fragment is loaded once
+//    and serves both (KH + 1 fragments where 2 KH were). No branch sits
+//    between the products of a step: tiles past the band compute on
+//    clamped rows and are not stored.
+//  - A pooled halo is four planes (row parity x column parity; TMA boxes
+//    with a traversal stride of 2, or the producers' pair expansion), each
+//    row padded to WO mod 8 slots, so the 8 windows of an ldmatrix, 2
+//    pixels apart in the image, are 8 consecutive slots on 8 bank groups,
+//    across a row wrap too. Block 3's halo rows are padded the same way.
+//  - db: each thread's f32 sums, then the lanes, warps and warpgroups in a
+//    fixed order, one partial a CTA; wgrad_reduce_kernel adds the partials
+//    in a fixed order. No float atomics: bit-identical from run to run.
+//  - What still bounds it (PERF.md): block 0's dz write, which only fusing
+//    the route into block 0's wgrad (or a compact dz) removes; elsewhere
+//    shared-memory traffic, A's ldmatrix and B's descriptor reads (each
+//    wgmma of a tile pair reads B again), as in the dgrad and the wgrad.
+
+// relu'(z): reference_block's maximum(z, 0) gives 1/2 at z == 0, flax's
+// relu 0
+__device__ __forceinline__ float relu_grad(float z, int flax) {
+  return z > 0.f ? 1.f : (z == 0.f && !flax ? 0.5f : 0.f);
+}
+
+// The cotangent gv of a pool window's max, routed to its four positions
+// q = 2 * row + column, through the pool and the relu. Every factor is a
+// power of two, so each share is exact in bf16.
+__device__ __forceinline__ void pool_route(const float (&z)[4], float gv, int flax,
+                                           float (&d)[4]) {
+  float r[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) r[q] = fmaxf(z[q], 0.f);
+  if (flax) {
+    // F.max_pool2d / nn.max_pool: all of it to the first maximum, row-major
+    const float m = fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3]));
+    const int first = r[0] == m ? 0 : r[1] == m ? 1 : r[2] == m ? 2 : 3;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = q == first ? gv * relu_grad(z[q], 1) : 0.f;
+  } else {
+    // reference_block's nested max, the column pair of each window row
+    // first, then the two rows; each max splits its cotangent evenly
+    // among its tied arguments
+    const float m0 = fmaxf(r[0], r[1]), m1 = fmaxf(r[2], r[3]);
+    const float M = fmaxf(m0, m1);
+    const float rs = m0 == M && m1 == M ? 0.5f : 1.f;
+    const float m[2] = {m0, m1};
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const float gr = m[f] == M ? gv * rs : 0.f;
+      const float cs = r[2 * f] == m[f] && r[2 * f + 1] == m[f] ? 0.5f : 1.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = 2 * f + h;
+        d[q] = r[q] == m[f] ? gr * cs * relu_grad(z[q], 0) : 0.f;
+      }
+    }
+  }
+}
+
+// smem -> global: a box of a 4-D tensor map from shared memory (outside
+// the tensor: not written), in the thread's bulk group
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of the thread's bulk stores have not yet read their
+// shared memory (the N last issued)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until the thread's bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// a barrier of `count` threads (a multiple of 32) on hardware barrier `id`
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// The route's layout of one geometry G (the forward's), WGS_ consumer
+// warpgroups. A halo slot: a pixel's Ci channels (SB bytes, a TMA box's
+// swizzled row) or, for Ci = 4, a pixel pair (16 bytes: pixels hc - PW and
+// hc - PW + 1 of slot column hc). Pooled, the halo is NP = 4 planes (row
+// parity, column parity) of plane_rows x pitch slots; else one plane.
+template <class G, int WGS_>
+struct RGeom {
+  static constexpr int U = G::U;
+  static constexpr int NP = G::POOL ? 4 : 1;
+  static constexpr int SB = G::ROW ? 16 : G::CI * 2;
+  static constexpr int N = G::CO;
+  static constexpr int KSTEPS = G::KP / 16;
+  static constexpr int DROW = N * 2;              // bytes of a pixel's Co channels
+  static constexpr int SWZ = N == 64 ? 1 : 2;     // their swizzle: 128 B or 64 B
+  static constexpr int KGROUP = 8 * DROW;
+  static constexpr int MT = G::POOL ? 32 : 64;    // windows (positions) a tile
+  static constexpr int NT = G::POOL ? 2 : 1;      // m64 tiles of a tile
+  static constexpr int WGS = WGS_;                // consumer warpgroups
+  static constexpr int CW = 4 * WGS;              // consumer warps
+  static constexpr int PWARPS = G::ROW ? 4 : 1;   // producer warps
+  static constexpr int THREADS = 32 * (CW + PWARPS);
+  static constexpr size_t W_BYTES = align_up(size_t(G::KP) * DROW, 1024);
+  // the bias (f32), then the warps' db sums
+  static constexpr size_t RED_BYTES = align_up(size_t(CW + 1) * N * 4, 1024);
+  // dz staging boxes: a band's box is reused NSTG items later, so the store
+  // of item m - 2 may still be reading its box while item m is announced
+  // (block 0's dz stores, 32 KB a band, are the kernel's largest)
+  static constexpr int NSTG = G::ROW ? 3 : 2;
+  static_assert(N == 32 || N == 64, "the route takes Co = 32 or 64");
+  static_assert(G::ROW ? (G::CI == 4 && G::POOL && G::KROW == 32) : G::CI % 16 == 0,
+                "the route takes Ci = 4 (pooled, pixel pairs) or a multiple of 16");
+
+  static __host__ __device__ int halo_rows(int R) { return U * R + G::KH - 1; }
+  static __host__ __device__ int plane_rows(int R) {
+    return G::POOL ? (halo_rows(R) + 1) / 2 : halo_rows(R);
+  }
+  // the slot columns a plane row holds
+  static __host__ __device__ int plane_cols(int W) {
+    return G::POOL ? (G::halo_cols(W) + 1) / 2 : G::halo_cols(W);
+  }
+  // slots a plane row: plane_cols padded to W / U mod 8, so that a row
+  // wrap moves 8 consecutive windows (positions) by whole rows of 8 slots
+  static __host__ __device__ int pitch(int W) {
+    const int c = plane_cols(W);
+    return c + ((W / U - c) & 7);
+  }
+  static __host__ __device__ size_t plane_bytes(int W, int R) {
+    return align_up(size_t(plane_rows(R)) * pitch(W) * SB, 1024);
+  }
+  static __host__ __device__ size_t g_bytes(int W, int R) {
+    return align_up(size_t(R) * (W / U) * DROW, 1024);
+  }
+  // Ci = 4: the halo's input rows as they are (W * CI elements of esize)
+  static __host__ __device__ size_t raw_bytes(int W, int R, int esize) {
+    return G::ROW ? align_up(size_t(halo_rows(R)) * W * G::CI * esize, 1024) : 0;
+  }
+  static __host__ __device__ size_t stage_bytes(int W, int R) {
+    return NP * plane_bytes(W, R) + g_bytes(W, R);
+  }
+  // a dz staging box [U * R rows, Wd, Co]
+  static __host__ __device__ size_t staging_bytes(int W, int R) {
+    return align_up(size_t(U * R) * (W / U * U) * DROW, 1024);
+  }
+  // the ring's stages, two buffers of input rows (Ci = 4), NSTG staging
+  // boxes
+  static size_t smem_bytes(int W, int R, int esize) {
+    return kSmemHead + W_BYTES + RED_BYTES + kStages * stage_bytes(W, R) +
+           2 * raw_bytes(W, R, esize) + NSTG * staging_bytes(W, R);
+  }
+  // The byte offset of row u's 16-byte chunk v (channels 8v .. 8v + 7) in a
+  // box of DROW-byte rows, swizzled as TMA lays it out: the g box, the dz
+  // staging box (WGeom::dz_offset) and the weights B[k][n] (row k)
+  static __host__ __device__ int row_offset(int u, int v) {
+    const int phase = N == 64 ? (u & 7) : ((u >> 1) & 3);
+    return u * DROW + ((v ^ phase) << 4);
+  }
+};
+
+// the route's barriers: full[s] (two arrivals: the producer's copies with
+// their bytes, then the producer once the stage's halo is laid out and the
+// item's dz staging box is free), empty[s] (every consumer warp), and for
+// Ci = 4 raw[r] (an item's input rows landed in row buffer r)
+struct RouteBars {
+  uint64_t full[kStages], empty[kStages], raw[2];
+};
+
+// CTA p walks the items (sample, band of R output rows) i0 .. i0 + n - 1.
+// tm_x maps x [B, H, W, CI] (pooled: boxes of a plane, traversal stride 2;
+// unused for Ci = 4, whose rows come by bulk copy), tm_g g [B, HO, WO, CO]
+// (boxes of R rows), tm_dz dz [B, Hd, Wd, CO] (boxes of U * R rows, stored).
+// dbpart[p] takes the CTA's f32 sums of its dz.
+template <class G, typename TIn, int WGS>
+__global__ void __launch_bounds__(RGeom<G, WGS>::THREADS, 1)
+    route_kernel(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_g,
+                 const __grid_constant__ CUtensorMap tm_dz, const TIn* __restrict__ x,
+                 const bf16* __restrict__ w, const bf16* __restrict__ b,
+                 float* __restrict__ dbpart, int flax, int B, int H, int W, int R, int NB,
+                 float scale) {
+  using RG = RGeom<G, WGS>;
+  constexpr int ES = sizeof(TIn);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  RouteBars& bars = *reinterpret_cast<RouteBars*>(smem_raw);
+  unsigned char* smem = align_1024(smem_raw + sizeof(RouteBars));
+  float* bias = reinterpret_cast<float*>(smem + RG::W_BYTES);
+  float* red = bias + RG::N;
+  unsigned char* stages = smem + RG::W_BYTES + RG::RED_BYTES;
+  const size_t stage = RG::stage_bytes(W, R), plane = RG::plane_bytes(W, R);
+  const size_t g_off = RG::NP * plane, rawb = RG::raw_bytes(W, R, ES);
+  unsigned char* raws = stages + kStages * stage;
+  unsigned char* staging = raws + 2 * rawb;
+  const size_t stg = RG::staging_bytes(W, R);
+  const int HO = H / G::U, WO = W / G::U, Wd = WO * G::U;
+  const int pitch = RG::pitch(W), prows = RG::plane_rows(R);
+  const int n_items = B * NB;
+  const int i0 = int(static_cast<long long>(n_items) * blockIdx.x / gridDim.x);
+  const int n = int(static_cast<long long>(n_items) * (blockIdx.x + 1) / gridDim.x) - i0;
+
+  // the weights, once: B[kp][co], rows of Co (the HWIO w's own order; Ci = 4
+  // pads each kernel row's KW * CI values to KROW with zeros)
+  constexpr int WV = RG::N / 8;
+  for (int i = threadIdx.x; i < G::KP * WV; i += RG::THREADS) {
+    const int kp = i / WV, v = i - kp * WV;
+    int src = kp;
+    bool valid = true;
+    if constexpr (G::ROW) {
+      const int ky = kp / G::KROW, j = kp - ky * G::KROW;
+      valid = j < G::KW * G::CI;
+      src = valid ? ky * G::KW * G::CI + j : 0;
+    }
+    cp_async<16>(smem + RG::row_offset(kp, v), w + size_t(src) * RG::N + v * 8, valid);
+  }
+  for (int i = threadIdx.x; i < RG::N; i += RG::THREADS) bias[i] = __bfloat162float(b[i]);
+  cp_async_wait_all();
+  fence_async_smem();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bars.full[s], 2);
+      mbar_init(&bars.empty[s], RG::CW);
+    }
+    for (int r = 0; r < 2; ++r) mbar_init(&bars.raw[r], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto item_at = [&](int j, int& bi, int& r0) {
+    const int item = i0 + j;
+    bi = item / NB;
+    r0 = (item - bi * NB) * R;
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp >= RG::CW) {
+    // ---- the producer. Item m: its halo laid out (Ci = 4: expanded from
+    // the rows loaded two items ahead), then, once the consumers are done
+    // with item m - 2, item m - 2's dz out and item m + 1's copies in,
+    // and, once item m - NSTG's store has read its box, item m announced.
+    const int pt = threadIdx.x - 32 * RG::CW;
+    const int row_bytes = W * G::CI * ES;
+    // Ci = 4: item j's input rows into row buffer j % 2
+    auto load_rows = [&](int j) {
+      int bi, r0;
+      item_at(j, bi, r0);
+      const int y0 = G::U * r0 - G::PH, lo = max(0, y0), hi = min(H, y0 + RG::halo_rows(R));
+      uint64_t* bar = &bars.raw[j & 1];
+      mbar_expect_tx(bar, uint32_t(max(0, hi - lo)) * row_bytes);
+      for (int iy = lo; iy < hi; ++iy) {
+        bulk_load(raws + (j & 1) * rawb + size_t(iy - y0) * row_bytes,
+                  x + (size_t(bi) * H + iy) * W * G::CI, row_bytes, bar);
+      }
+    };
+    // item j's TMA boxes into stage j % kStages: the halo planes (not for
+    // Ci = 4) and g
+    auto load_boxes = [&](int j) {
+      int bi, r0;
+      item_at(j, bi, r0);
+      const int s = j % kStages;
+      unsigned char* st = stages + s * stage;
+      const uint32_t halo = G::ROW ? 0u : uint32_t(RG::NP) * prows * pitch * RG::SB;
+      mbar_expect_tx(&bars.full[s], halo + uint32_t(R) * WO * RG::DROW);
+      if constexpr (!G::ROW) {
+        for (int p = 0; p < RG::NP; ++p) {
+          tma_load_4d(st + p * plane, &tm_x, &bars.full[s], 0, -G::PW + (p & 1),
+                      G::U * r0 - G::PH + (p >> 1), bi);
+        }
+      }
+      tma_load_4d(st + g_off, &tm_g, &bars.full[s], 0, 0, r0, bi);
+    };
+    auto store = [&](int j) {  // item j's dz from its staging box
+      int bi, r0;
+      item_at(j, bi, r0);
+      tma_store_4d(&tm_dz, staging + (j % RG::NSTG) * stg, 0, 0, G::U * r0, bi);
+    };
+    if (pt == 0 && n > 0) {
+      if constexpr (G::ROW) {
+        load_rows(0);
+        if (n > 1) load_rows(1);
+      }
+      load_boxes(0);
+    }
+    for (int m = 0; m < n; ++m) {
+      const int s = m % kStages;
+      if constexpr (G::ROW) {
+        // pair slot (hr, hc) = pixels hc - PW, hc - PW + 1 of halo row hr,
+        // in plane (hr & 1, hc & 1) at (hr >> 1, hc >> 1); zero outside
+        // the image, uint8 scaled by bf16(1/255) with one rounding. Stage
+        // s is free: item m - 3's release was awaited
+        int bi, r0;
+        item_at(m, bi, r0);
+        const int y0 = G::U * r0 - G::PH;
+        mbar_wait(&bars.raw[m & 1], (m >> 1) & 1);
+        const int cols = RG::plane_cols(W);
+        const unsigned char* raw = raws + (m & 1) * rawb;
+        unsigned char* st = stages + s * stage;
+        // a producer warp a plane row at a time, a lane a slot
+        for (int pw = pt >> 5; pw < RG::NP * prows; pw += RG::PWARPS) {
+          const int p = pw / prows, pr = pw - p * prows;
+          const int hr = 2 * pr + (p >> 1), iy = y0 + hr;
+          for (int pc = pt & 31; pc < cols; pc += 32) {
+            const int hc = 2 * pc + (p & 1);
+            uint32_t v[4];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int ix = hc - G::PW + h;
+              const bool in = iy >= 0 && iy < H && ix >= 0 && ix < W;
+              const unsigned char* src = raw + hr * row_bytes + ix * G::CI * ES;
+              if constexpr (ES == 2) {
+                const uint2 q = in ? *reinterpret_cast<const uint2*>(src) : make_uint2(0, 0);
+                v[2 * h] = q.x;
+                v[2 * h + 1] = q.y;
+              } else {
+                const uint32_t q = in ? *reinterpret_cast<const uint32_t*>(src) : 0u;
+                v[2 * h] = pack_bf16x2(float(q & 0xff) * scale, float((q >> 8) & 0xff) * scale);
+                v[2 * h + 1] =
+                    pack_bf16x2(float((q >> 16) & 0xff) * scale, float(q >> 24) * scale);
+              }
+            }
+            *reinterpret_cast<uint4*>(st + p * plane + (size_t(pr) * pitch + pc) * 16) =
+                make_uint4(v[0], v[1], v[2], v[3]);
+          }
+        }
+        named_sync(2, 32 * RG::PWARPS);  // row buffer m & 1 is free again
+        if (pt == 0 && m + 2 < n) load_rows(m + 2);
+      }
+      if (m >= 2) {  // stage (m + 1) % kStages frees up, item m - 2's dz leaves
+        mbar_wait(&bars.empty[(m - 2) % kStages], ((m - 2) / kStages) & 1);
+        if (pt == 0) store(m - 2);
+      }
+      if (pt == 0) {
+        if (m + 1 < n) load_boxes(m + 1);
+        if (m >= RG::NSTG) bulk_wait_read<RG::NSTG - 2>();  // item m's box is free
+        mbar_arrive(&bars.full[s]);
+      }
+    }
+    for (int j = max(0, n - 2); j < n; ++j) {
+      mbar_wait(&bars.empty[j % kStages], (j / kStages) & 1);
+      if (pt == 0) store(j);
+    }
+    if (pt == 0) bulk_wait();
+    return;
+  }
+
+  // ---- the consumers
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const uint32_t ws = smem_u32(smem);
+  float dbs[RG::N / 8][2];
+#pragma unroll
+  for (int j = 0; j < RG::N / 8; ++j) dbs[j][0] = dbs[j][1] = 0.f;
+  int done = 0;  // tiles of the CTA's earlier items
+  for (int it = 0; it < n; ++it) {
+    const int s = it % kStages;
+    mbar_wait(&bars.full[s], (it / kStages) & 1);
+    const int r0 = (i0 + it) % NB * R;
+    const int units = min(R, HO - r0) * WO, tiles = (units + RG::MT - 1) / RG::MT;
+    const uint32_t hs = smem_u32(stages + s * stage);
+    const unsigned char* gs = stages + s * stage + g_off;
+    unsigned char* dzs = staging + (it % RG::NSTG) * stg;
+    for (int q = ((wg - done) % WGS + WGS) % WGS; q < tiles; q += WGS) {
+      // A: lane l gives one row of its warp's 16 in each m64 tile; past the
+      // band, the band's last window (position), computed and not stored
+      uint32_t sl[2], pb[2];  // pooled: per kx parity, the slot and plane
+      int slot0 = 0;          // not pooled: the position's slot
+      if constexpr (G::POOL) {
+        const int v = min(q * 32 + 8 * wl + (lane & 7), units - 1);
+        const int uy = v / WO, ux = v - uy * WO, h = (lane >> 3) & 1;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          // halo column 2 ux + h + kx: column parity (h + kx) & 1, slot
+          // column ux + ((h + kx) >> 1); Ci = 4 reads parity h only
+          const int cp = G::ROW ? h : (h + p) & 1;
+          sl[p] = uy * pitch + ux + (G::ROW ? 0 : (h + p) >> 1);
+          pb[p] = hs + cp * plane;
+        }
+      } else {
+        const int v = min(q * 64 + 16 * wl + (lane & 15), units - 1);
+        slot0 = v / W * pitch + v % W;
+      }
+      // the A fragment of tile f at k step ks (both compile-time)
+      auto a_addr = [&](int f, int ks) -> uint32_t {
+        if constexpr (G::ROW) {
+          // kernel row ky, pixels 4 sp .. 4 sp + 3 (pairs 2 sp, 2 sp + 1 of
+          // the row's slot columns), the lane's pair c = lane >> 4
+          const int ky = ks / 2, sp = ks % 2;
+          return pb[0] + ((f + ky) & 1) * 2 * plane +
+                 (sl[0] + ((f + ky) >> 1) * pitch + 2 * sp + (lane >> 4)) * 16;
+        } else {
+          const int tap = ks / (G::CI / 16), cc = ks % (G::CI / 16);
+          const int ky = tap / G::KW, kx = tap % G::KW, chunk = 2 * cc + (lane >> 4);
+          if constexpr (G::POOL) {
+            const int slot = sl[kx & 1] + ((f + ky) >> 1) * pitch + (kx >> 1);
+            return pb[kx & 1] + ((f + ky) & 1) * 2 * plane + swizzled<RG::SB>(slot, chunk);
+          } else {
+            return hs + swizzled<RG::SB>(slot0 + ky * pitch + kx, chunk);
+          }
+        }
+      };
+      float acc[RG::NT][RG::N / 2];
+#pragma unroll
+      for (int f = 0; f < RG::NT; ++f)
+#pragma unroll
+        for (int e = 0; e < RG::N / 2; ++e) acc[f][e] = 0.f;
+      // A two k steps ahead; no branch between the products (ptxas waits
+      // for the products in flight where control flow merges)
+      if constexpr (G::POOL) {
+        // tile 1 at kernel row ky reads what tile 0 reads at ky + 1 (its
+        // windows' bottom pre-pool rows lie one row below their top ones):
+        // each fragment is loaded once, for tile 1 (kernel row 0: for tile
+        // 0 too), and taken again by tile 0 a kernel row later
+        constexpr int SPR = RG::KSTEPS / G::KH;  // k steps a kernel row
+        uint32_t fr[G::KH + 1][SPR][4];
+        auto fetch = [&](int ks) {  // the fragments step ks is the first to take
+          const int ky = ks / SPR, i = ks % SPR;
+          if (ky == 0) ldsm_x4(fr[0][i], a_addr(0, ks));
+          ldsm_x4(fr[ky + 1][i], a_addr(1, ks));
+        };
+        fetch(0);
+        fetch(1);
+#pragma unroll
+        for (int ks = 0; ks < RG::KSTEPS; ++ks) {
+          const int ky = ks / SPR, i = ks % SPR;
+          const uint64_t desc =
+              gmma_desc(ws + ks * 16 * RG::DROW, RG::KGROUP, RG::KGROUP, RG::SWZ);
+          wgmma_fence();
+          wgmma_rs<RG::N, 1>(acc[0], fr[ky][i], desc);
+          wgmma_rs<RG::N, 1>(acc[1], fr[ky + 1][i], desc);
+          wgmma_commit();
+          wgmma_wait<1>();  // step ks - 1's fragments may be overwritten
+          if (ks + 2 < RG::KSTEPS) fetch(ks + 2);
+        }
+      } else {
+        uint32_t fa[3][4];
+        ldsm_x4(fa[0], a_addr(0, 0));
+        ldsm_x4(fa[1], a_addr(0, 1));
+#pragma unroll
+        for (int ks = 0; ks < RG::KSTEPS; ++ks) {
+          const uint64_t desc =
+              gmma_desc(ws + ks * 16 * RG::DROW, RG::KGROUP, RG::KGROUP, RG::SWZ);
+          wgmma_fence();
+          wgmma_rs<RG::N, 1>(acc[0], fa[ks % 3], desc);
+          wgmma_commit();
+          wgmma_wait<1>();  // step ks - 1 is done with fa[(ks + 2) % 3]
+          if (ks + 2 < RG::KSTEPS) ldsm_x4(fa[(ks + 2) % 3], a_addr(0, ks + 2));
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int f = 0; f < RG::NT; ++f)
+#pragma unroll
+        for (int e = 0; e < RG::N / 2; ++e) fence_reg(acc[f][e]);
+
+      // the epilogue: acc[f][4j + 2h + e] is row 16 wl + g + 8h of tile f,
+      // channel 8j + 2t + e; g from the stage's box, dz into the staging box
+      if constexpr (G::POOL) {
+        const int v = q * 32 + 8 * wl + g;  // the thread's window
+        if (v < units) {
+          const int uy = v / WO, ux = v - uy * WO;
+#pragma unroll
+          for (int j = 0; j < RG::N / 8; ++j) {
+            const __nv_bfloat162 gp =
+                *reinterpret_cast<const __nv_bfloat162*>(gs + RG::row_offset(v, j) + 4 * t);
+            const float gv[2] = {__low2float(gp), __high2float(gp)};
+            float d[2][4];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float bj = bias[8 * j + 2 * t + e];
+              float z[4];
+#pragma unroll
+              for (int qq = 0; qq < 4; ++qq) {
+                z[qq] = pre_act(acc[qq >> 1][4 * j + 2 * (qq & 1) + e], bj);
+              }
+              pool_route(z, gv[e], flax, d[e]);
+            }
+#pragma unroll
+            for (int qq = 0; qq < 4; ++qq) {
+              const int u = (2 * uy + (qq >> 1)) * Wd + 2 * ux + (qq & 1);
+              *reinterpret_cast<uint32_t*>(dzs + RG::row_offset(u, j) + 4 * t) =
+                  pack_bf16x2(d[0][qq], d[1][qq]);
+              dbs[j][0] += d[0][qq];
+              dbs[j][1] += d[1][qq];
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int u = q * 64 + 16 * wl + g + 8 * h;
+          if (u < units) {
+#pragma unroll
+            for (int j = 0; j < RG::N / 8; ++j) {
+              const __nv_bfloat162 gp =
+                  *reinterpret_cast<const __nv_bfloat162*>(gs + RG::row_offset(u, j) + 4 * t);
+              const float d0 = __low2float(gp) *
+                               relu_grad(pre_act(acc[0][4 * j + 2 * h], bias[8 * j + 2 * t]), flax);
+              const float d1 =
+                  __high2float(gp) *
+                  relu_grad(pre_act(acc[0][4 * j + 2 * h + 1], bias[8 * j + 2 * t + 1]), flax);
+              *reinterpret_cast<uint32_t*>(dzs + RG::row_offset(u, j) + 4 * t) =
+                  pack_bf16x2(d0, d1);
+              dbs[j][0] += d0;
+              dbs[j][1] += d1;
+            }
+          }
+        }
+      }
+    }
+    done += tiles;
+    fence_async_smem();  // the staging writes, before the TMA store reads them
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&bars.empty[s]);
+  }
+
+  // the CTA's db partial: over the 8 lanes that hold the same channels,
+  // then the warps of a warpgroup, then the warpgroups, each in order
+#pragma unroll
+  for (int j = 0; j < RG::N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) dbs[j][e] += __shfl_xor_sync(0xffffffffu, dbs[j][e], o);
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < RG::N / 8; ++j) {
+      red[warp * RG::N + 8 * j + 2 * lane] = dbs[j][0];
+      red[warp * RG::N + 8 * j + 2 * lane + 1] = dbs[j][1];
+    }
+  }
+  named_sync(1, 32 * RG::CW);
+  for (int c = threadIdx.x; c < RG::N; c += 32 * RG::CW) {
+    float sum = 0.f;
+    for (int k = 0; k < WGS; ++k) {
+      float part = 0.f;
+      for (int i = 0; i < 4; ++i) part += red[(4 * k + i) * RG::N + c];
+      sum += part;
+    }
+    dbpart[size_t(blockIdx.x) * RG::N + c] = sum;
+  }
+}
+
+// The band: the R that minimises a cost model (the CTA's tiles, shared by
+// its warpgroups, plus a fixed cost per item, over the CTAs that fit on the
+// card, never below one band's round of tiles), among those whose stages
+// fit; one CTA per resident slot or per item, whichever is fewer, and at
+// most dbpart_cap (one db partial a CTA).
+template <class G, typename TIn, int WGS>
+int launch_route(const void* x, const void* w, const void* b, const void* g, void* dz,
+                 void* dbpart, int dbpart_cap, int* n_dbpart, int flax, int B, int H, int W,
+                 float scale, cudaStream_t stream) {
+  using RG = RGeom<G, WGS>;
+  constexpr int ES = sizeof(TIn);
+  const auto kernel = route_kernel<G, TIn, WGS>;
+  DeviceInfo d;
+  using Tag = std::tuple<G, TIn, std::integral_constant<int, -3 - WGS>>;
+  if (const int e = device_info<Tag>(kernel, RG::THREADS, &d)) return e;
+  const int HO = H / G::U, WO = W / G::U, Hd = HO * G::U, Wd = WO * G::U;
+  if (HO == 0 || WO == 0) return 0;
+  // Ci = 4 copies whole rows of x: 16-byte multiples; the boxes' widths
+  if ((G::ROW && (W * G::CI * ES) % 16) || RG::pitch(W) * (G::POOL ? 2 : 1) > 256 || Wd > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto band_cost = [&](int rows) {
+    const int tiles = (rows * WO + RG::MT - 1) / RG::MT;
+    return double(tiles) / WGS + 0.2;
+  };
+  int best_r = 0, best_slots = 0;
+  double best = 0.0;
+  for (int R = 1; R <= HO && G::U * R <= 256 && RG::plane_rows(R) * (G::POOL ? 2 : 1) <= 256;
+       ++R) {
+    const size_t smem = RG::smem_bytes(W, R, ES);
+    if (smem > size_t(d.smem_block)) break;
+    const int per_sm = std::min<long long>(d.ctas_by_regs, d.smem_sm / (smem + 1024));
+    if (per_sm < 1) break;
+    const int NB = (HO + R - 1) / R;
+    const double full = band_cost(R), last = band_cost(HO - (NB - 1) * R);
+    const int slots = std::min(per_sm * d.sms, dbpart_cap);
+    const int band_rounds = ((R * WO + RG::MT - 1) / RG::MT + WGS - 1) / WGS;
+    const double time = std::max(double(B) * ((NB - 1) * full + last) / slots,
+                                 double(band_rounds));
+    if (best_r == 0 || time < best) {
+      best_r = R;
+      best = time;
+      best_slots = slots;
+    }
+  }
+  if (best_r == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int NB = (HO + best_r - 1) / best_r;
+  const long long items = static_cast<long long>(B) * NB;
+  if (items > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(std::min<long long>(items, best_slots));
+  CUtensorMap tm_x, tm_g, tm_dz;
+  if (const int e = nhwc_map(&tm_g, g, B, HO, WO, G::CO, WO, best_r)) return e;
+  if (const int e = nhwc_map(&tm_dz, dz, B, Hd, Wd, G::CO, Wd, G::U * best_r)) return e;
+  if constexpr (G::ROW) {
+    tm_x = tm_g;  // unused: Ci = 4 copies x's rows
+  } else if (const int e = nhwc_map(&tm_x, x, B, H, W, G::CI, RG::pitch(W),
+                                    RG::plane_rows(best_r), G::POOL ? 2 : 1)) {
+    return e;
+  }
+  kernel<<<grid, RG::THREADS, RG::smem_bytes(W, best_r, ES), stream>>>(
+      tm_x, tm_g, tm_dz, static_cast<const TIn*>(x), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(b), static_cast<float*>(dbpart), flax, B, H, W, best_r, NB,
+      scale);
+  const int e = static_cast<int>(cudaGetLastError());
+  if (e == 0) *n_dbpart = grid;
+  return e;
 }
 
 // ---------------------------------------------------------------------------
@@ -992,25 +1650,28 @@ extern "C" int ba3c_conv_block_route(const void* x, int x_uint8, const void* w,
   }
   if (misaligned({x, w, g, dz, dbpart})) return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const RouteArgs rt{static_cast<const bf16*>(g), static_cast<bf16*>(dz),
-                     static_cast<float*>(dbpart), flax != 0};
   const auto is = [&](int KH, int CI, int CO, bool POOL) {
     return kh == KH && kw == KH && Ci == CI && Co == CO && (pool != 0) == POOL;
   };
-  const auto route = [&](auto geom, auto in) {
+  // consumer warpgroups a CTA as measured best on an H100 (PERF.md): three,
+  // but two for block 2, whose tile pair holds 64 accumulators a thread
+  // and spills in the 128 registers that three warpgroups leave
+  const auto route = [&](auto geom, auto in, auto wgs) {
     using G = decltype(geom);
     using TIn = decltype(in);
-    return launch<G, TIn, kRoute>(x, w, b, nullptr, B, H, W, H, W, scale, rt, dbpart_cap,
-                                  n_dbpart, s);
+    return launch_route<G, TIn, decltype(wgs)::value>(x, w, b, g, dz, dbpart, dbpart_cap,
+                                                      n_dbpart, flax != 0, B, H, W, scale, s);
   };
+  using Two = std::integral_constant<int, 2>;
+  using Three = std::integral_constant<int, 3>;
   if (is(5, 4, 32, true)) {
     using G = Geom<5, 5, 4, 32, true>;
-    return x_uint8 ? route(G{}, uint8_t{}) : route(G{}, bf16{});
+    return x_uint8 ? route(G{}, uint8_t{}, Three{}) : route(G{}, bf16{}, Three{});
   }
   if (x_uint8) return static_cast<int>(cudaErrorInvalidValue);
-  if (is(5, 32, 32, true)) return route(Geom<5, 5, 32, 32, true>{}, bf16{});
-  if (is(4, 32, 64, true)) return route(Geom<4, 4, 32, 64, true>{}, bf16{});
-  if (is(3, 64, 64, false)) return route(Geom<3, 3, 64, 64, false>{}, bf16{});
+  if (is(5, 32, 32, true)) return route(Geom<5, 5, 32, 32, true>{}, bf16{}, Three{});
+  if (is(4, 32, 64, true)) return route(Geom<4, 4, 32, 64, true>{}, bf16{}, Two{});
+  if (is(3, 64, 64, false)) return route(Geom<3, 3, 64, 64, false>{}, bf16{}, Three{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -27,9 +27,10 @@ differentiate at ties, as the JAX model's two block paths do:
 (``pallas_conv.py:335-359``): forward :func:`conv_block_fwd`. On the card
 its backward is three hand-written kernels per block
 (``csrc/conv_block_bwd.cu``, in place of ``_cb_bwd``'s XLA recompute):
-:func:`conv_block_route` recomputes the pre-bias sums with the forward's
-mainloop and routes the cotangent back through the pool and the relu by the
-block's tie rule, into ``dz`` and the bias gradient's partial sums;
+:func:`conv_block_route` recomputes the pre-bias sums in the forward's k16
+steps (a wgmma kernel of its own, ``route_kernel``) and routes the cotangent
+back through the pool and the relu by the block's tie rule, into ``dz`` and
+the bias gradient's partial sums;
 :func:`conv_block_dgrad` and :func:`conv_block_wgrad` are the input and
 weight gradients as implicit GEMMs over ``dz``. On the CPU the backward is
 the VJP of the plain version recomputed from the saved inputs, as
@@ -201,7 +202,7 @@ def flax_block(
 
 
 #: each plain block's tail, and its tie rule's number in the kernels
-#: (csrc/conv_block.cuh, RouteArgs::flax)
+#: (csrc/conv_block_bwd.cu, route_kernel's ``flax``)
 _TAILS = {reference_block: (_reference_tail, 0), flax_block: (_flax_tail, 1)}
 
 
@@ -392,9 +393,9 @@ def conv_block_route(x, w, b, g, s: ConvSpec, plain=reference_block):
     B = x.shape[0]
     Hd, Wd = _dz_grid(s)
     dz = torch.empty((B, Hd, Wd, s.Co), dtype=torch.bfloat16, device=x.device)
-    # one partial per CTA: at most 16 CTAs of 128 threads fit on an SM
+    # one partial per CTA: at most two CTAs fit on an SM
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    dbpart = torch.empty((16 * sms, s.Co), dtype=torch.float32, device=x.device)
+    dbpart = torch.empty((2 * sms, s.Co), dtype=torch.float32, device=x.device)
     n = ctypes.c_int(0)
     g = g.to(torch.bfloat16).contiguous()
     with torch.cuda.device(x.device):

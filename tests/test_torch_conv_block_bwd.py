@@ -14,8 +14,10 @@ Two views of the three backward launches, both in numpy:
   max|ref| (XLA and the GEMM sum in other orders) and >= 99.9% within one
   bf16 ulp of an f32-summed oracle (the port's plain versions).
 - a lane-level emulation of the kernels' indexing, in the pattern of
-  tests/test_torch_conv_block.py's ``_emulate_kernel``: the route epilogue's
-  window registers and db partials; the dgrad's weight panels laid out from
+  tests/test_torch_conv_block.py's ``_emulate_kernel``: the route's halo
+  planes, tile pairs (a pool window in one thread's registers), weights
+  read through their descriptor, dz staging box and db partials; the
+  dgrad's weight panels laid out from
   the forward's HWIO w (the flip in the load), its swapped pads and block
   2's zero 21st row and column; the wgrad's swizzled dz tile, pixel-pair
   halo, K split over a CTA's warpgroups, contiguous runs of items and
@@ -63,12 +65,10 @@ from test_torch_conv_block import (
     REL_TOL,
     _bf16,
     _count_ties,
-    _emulate_mainloop,
     _Geom,
     _jax_spec,
     _jax_vjp,
     _ldsm,
-    _mma,
     _rel_err,
     _tie_inputs,
     _torch_args,
@@ -311,11 +311,9 @@ def test_plain_pieces_compose_to_the_plain_vjp(name, flax):
 
 # -- the kernels' indexing, emulated lane by lane ------------------------------
 
-_WARPS = 4  # conv_block.cuh's kWarps
-
 
 def _pool_route_lanes(z, gv, flax):
-    """conv_block.cuh's pool_route over arrays: z [4, ...] (q = 2 * row +
+    """conv_block_bwd.cu's pool_route over arrays: z [4, ...] (q = 2 * row +
     column), gv [...] -> d [4, ...]."""
     r = np.maximum(z, 0.0)
     rg = lambda zz, fl: np.where(zz > 0, 1.0, np.where((zz == 0) & (not fl), 0.5, 0.0))
@@ -336,59 +334,251 @@ def _pool_route_lanes(z, gv, flax):
     return np.stack(d)
 
 
-def _emulate_route(x, w, b, g, s: ConvSpec, R: int, grid: int, flax: bool):
-    """conv_block_kernel<.., kRoute> with band height R on ``grid`` CTAs:
-    dz [n, Hd, Wd, Co] and the db partials [grid, Co], every sum in the
-    kernel's f32 order (per lane over its chunks, the xor butterfly over the
-    8 lanes of a channel pair, then the warps)."""
-    G = _Geom(s)
-    n = x.shape[0]
-    HO, WO = s.H // G.U, s.W // G.U
-    Hd, Wd = _dz_grid(s)
-    gq = g.reshape(n, HO * WO, s.Co)
-    dz = np.full((n, Hd * Wd, s.Co), np.nan)
-    dbs = np.zeros((grid, _WARPS, 32, G.NJ, 2), np.float32)
+class _RGeom:
+    """conv_block_bwd.cu's ``RGeom<G, WGS>``, G the forward's geometry."""
+
+    STAGES = 3
+
+    def __init__(self, s: ConvSpec, wgs=None):
+        self.G = G = _Geom(s)
+        self.U = G.U
+        self.NP = 4 if s.pool else 1
+        self.SB = 16 if G.ROW else s.Ci * 2
+        self.N = s.Co
+        self.KSTEPS = G.KP // 16
+        self.DROW = s.Co * 2
+        self.SWZ = 1 if s.Co == 64 else 2
+        self.KGROUP = 8 * self.DROW
+        self.MT = 32 if s.pool else 64
+        self.NT = 2 if s.pool else 1
+        # the entry point's choice: three, but two for block 2
+        self.WGS = wgs or (2 if (s.Ci, s.Co) == (32, 64) else 3)
+        self.CW = 4 * self.WGS
+        self.W_BYTES = -(-G.KP * self.DROW // 1024) * 1024
+
+    def halo_rows(self, R):
+        return self.U * R + self.G.KH - 1
+
+    def plane_rows(self, R):
+        return (self.halo_rows(R) + 1) // 2 if self.G.POOL else self.halo_rows(R)
+
+    def plane_cols(self, W):
+        c = self.G.halo_cols(W)
+        return (c + 1) // 2 if self.G.POOL else c
+
+    def pitch(self, W):
+        """Slots a plane row: plane_cols padded to W / U mod 8."""
+        c = self.plane_cols(W)
+        return c + ((W // self.U - c) & 7)
+
+    def plane_bytes(self, W, R):
+        return -(-self.plane_rows(R) * self.pitch(W) * self.SB // 1024) * 1024
+
+    def staging_bytes(self, W, R):
+        return -(-self.U * R * (W // self.U * self.U) * self.DROW // 1024) * 1024
+
+    def row_offset(self, u, v):
+        """Row u's 16-byte chunk v in a box of DROW-byte rows, swizzled as
+        TMA lays it out (the g box, the dz staging box, the weights)."""
+        phase = (u & 7) if self.N == 64 else ((u >> 1) & 3)
+        return u * self.DROW + ((v ^ phase) << 4)
+
+
+def _route_weights(w, RG: _RGeom) -> np.ndarray:
+    """The route's weights as the kernel loads them from HWIO w: B[kp][co]
+    at row_offset(kp, co // 8), Ci = 4's kernel rows padded to KROW with
+    zeros; the rest of the buffer NaN."""
+    G = RG.G
+    ws = np.full(RG.W_BYTES // 2, np.nan)
+    wf = np.asarray(w, np.float64).reshape(-1, RG.N)
+    for kp in range(G.KP):
+        src, valid = kp, True
+        if G.ROW:
+            ky, j = divmod(kp, G.KROW)
+            valid = j < G.KW * G.CI
+            src = ky * G.KW * G.CI + j if valid else 0
+        for v in range(RG.N // 8):
+            o = RG.row_offset(kp, v) // 2
+            ws[o: o + 8] = wf[src, v * 8: v * 8 + 8] if valid else 0.0
+    return ws
+
+
+def _route_b(ws, RG: _RGeom, ks: int) -> np.ndarray:
+    """B of k step ks [16, Co]: wgmma's read of the weights through the
+    MN-major descriptor."""
+    return _desc_read(ws, ks * 16 * RG.DROW, RG.KGROUP, RG.KGROUP, RG.SWZ, RG.N, True)
+
+
+def _strided(a, r0, c0, rows, cols, step):
+    """a [H, W, C] at rows r0, r0 + step, .. and columns c0, c0 + step, ..
+    (rows x cols of them), zero outside: a TMA box with a traversal
+    stride."""
+    out = np.zeros((rows, cols, a.shape[2]))
+    for i in range(rows):
+        iy = r0 + step * i
+        if 0 <= iy < a.shape[0]:
+            for j in range(cols):
+                ix = c0 + step * j
+                if 0 <= ix < a.shape[1]:
+                    out[i, j] = a[iy, ix]
+    return out
+
+
+def _route_halo(xb, RG: _RGeom, R: int, y0: int) -> np.ndarray:
+    """A stage's halo as the kernel lays it out from one sample xb [H, W,
+    Ci] (bf16 values), halo row 0 at input row y0: pooled, the four (row
+    parity, column parity) planes, each a TMA box with traversal stride 2
+    (Ci = 4: the producers' pixel pairs, slot column hc holding pixels
+    hc - PW and hc - PW + 1); else one TMA box. The rest NaN."""
+    G = RG.G
+    H, W = xb.shape[:2]
+    pitch, prows, pb = RG.pitch(W), RG.plane_rows(R), RG.plane_bytes(W, R)
+    mem = np.full(RG.NP * pb // 2, np.nan)
+    if G.ROW:
+        for p in range(RG.NP):
+            for pr in range(prows):
+                iy = y0 + 2 * pr + (p >> 1)
+                for pc in range(RG.plane_cols(W)):
+                    at = (p * pb + (pr * pitch + pc) * 16) // 2
+                    for h in range(2):
+                        ix = 2 * pc + (p & 1) - G.PW + h
+                        inside = 0 <= iy < H and 0 <= ix < W
+                        mem[at + 4 * h: at + 4 * h + 4] = xb[iy, ix] if inside else 0.0
+        return mem
+    step = 2 if G.POOL else 1
+    for p in range(RG.NP):
+        box = _strided(xb, y0 + (p >> 1), -G.PW + (p & 1), prows, pitch, step)
+        mem[p * pb // 2: (p + 1) * pb // 2] = _tma_box(box, prows, pitch, RG.SB)
+    return mem
+
+
+def _route_a_addr(RG: _RGeom, q: int, units: int, W: int, pb: int, f: int, ks: int):
+    """route_kernel's a_addr: the byte address (from the stage's halo) that
+    lane l of warp wl gives ldmatrix for tile f of the band's tile q at k
+    step ks, [4 warps, 32 lanes]. Rows past the band take its last window
+    (position)."""
+    G = RG.G
+    WO, pitch = W // RG.U, RG.pitch(W)
+    wl, lane = np.arange(4)[:, None], _LANE[None, :]
+    if G.POOL:
+        v = np.minimum(q * 32 + 8 * wl + (lane & 7), units - 1)
+        uy, ux, h = v // WO, v % WO, (lane >> 3) & 1
+        if G.ROW:  # kernel row ky, pixel pairs 2 sp and 2 sp + 1 of its slot columns
+            ky, sp = divmod(ks, 2)
+            row = uy + ((f + ky) >> 1)
+            return (h * pb + ((f + ky) & 1) * 2 * pb
+                    + (row * pitch + ux + 2 * sp + (lane >> 4)) * 16)
+        tap, cc = divmod(ks, G.CI // 16)
+        ky, kx = divmod(tap, G.KW)
+        cp, col = (h + kx) & 1, ux + ((h + (kx & 1)) >> 1) + (kx >> 1)
+        slot = (uy + ((f + ky) >> 1)) * pitch + col
+        return cp * pb + ((f + ky) & 1) * 2 * pb + _swizzled(slot, 2 * cc + (lane >> 4), RG.SB)
+    v = np.minimum(q * 64 + 16 * wl + (lane & 15), units - 1)
+    tap, cc = divmod(ks, G.CI // 16)
+    ky, kx = divmod(tap, G.KW)
+    return _swizzled(v // W * pitch + v % W + ky * pitch + kx, 2 * cc + (lane >> 4), RG.SB)
+
+
+def _route_tiles(RG: _RGeom, n_items: int, NB: int, R: int, HO: int, WO: int, grid: int):
+    """route_kernel's schedule: for each CTA (a contiguous run of items)
+    and item, (bi, r0, units, [(warpgroup, tile), ..]): the band's tiles
+    round-robin over the warpgroups, counted across the CTA's items."""
+    out = []
+    for cta in range(grid):
+        done, run = 0, []
+        for item in range(n_items * cta // grid, n_items * (cta + 1) // grid):
+            bi, r0 = item // NB, item % NB * R
+            units = min(R, HO - r0) * WO
+            tiles = -(-units // RG.MT)
+            run.append((bi, r0, units, [(wg, q) for wg in range(RG.WGS)
+                                        for q in range((wg - done) % RG.WGS, tiles, RG.WGS)]))
+            done += tiles
+        out.append(run)
+    return out
+
+
+def _emulate_route(x, w, b, g, s: ConvSpec, R: int, grid: int, flax: bool, wgs=None):
+    """route_kernel with band height R on ``grid`` CTAs: dz [n, Hd, Wd, Co]
+    (what the TMA stores write out of each band's staging box) and the db
+    partials [grid, Co]. Per tile: A by ldmatrix from the halo planes, B
+    through the weights' descriptor, the accumulators through wgmma's
+    layout; the route on the registers (a thread's window across the tile
+    pair), dz into the swizzled staging box, g from the stage's box; every
+    db sum in the kernel's f32 order (a thread's tiles in order, the xor
+    butterfly over the 8 lanes of a channel pair, the warps of a warpgroup,
+    then the warpgroups)."""
+    RG = _RGeom(s, wgs)
+    G = RG.G
+    n, nj = x.shape[0], RG.N // 8
+    HO, WO = s.H // RG.U, s.W // RG.U
+    Hd, Wd = HO * RG.U, WO * RG.U
+    xv = _x_values(x, s)
+    gq = g.reshape(n, HO, WO, s.Co).astype(np.float64)
+    ws = _route_weights(w, RG)
+    bsteps = [_route_b(ws, RG, ks) for ks in range(RG.KSTEPS)]
+    pb = RG.plane_bytes(s.W, R)
     NB = -(-HO // R)
-    for bi, r0, units, u0, acc in _emulate_mainloop(x, w, s, R):
-        cta = (bi * NB + r0 // R) % grid
-        for c in range(len(u0)):
-            warp = c % _WARPS
-            for j in range(G.NJ):
-                co = 8 * j + 2 * _T
-                for e in range(2):
-                    bias = b[co + e]
-                    pre = lambda a: _bf16(_bf16(a) + bias)
-                    if G.POOL:
-                        u = u0[c] + _G
-                        ok = u < units
-                        uc = np.where(ok, u, 0)
-                        z = np.stack([pre(acc[q >> 1, j, c, :, 2 * (q & 1) + e]) for q in range(4)])
-                        d = _pool_route_lanes(z, gq[bi, r0 * WO + uc, co + e], flax)
-                        uy, ux = uc // WO, uc % WO
-                        for q in range(4):
-                            at = (2 * (r0 + uy) + (q >> 1)) * Wd + 2 * ux + (q & 1)
-                            dz[bi, at[ok], (co + e)[ok]] = d[q][ok]
-                            dbs[cta, warp, :, j, e] += np.where(ok, d[q], 0).astype(np.float32)
-                    else:
-                        for f in range(2):
-                            for h in range(2):
-                                u = u0[c] + f * 16 + h * 8 + _G
-                                ok = u < units
-                                uc = np.where(ok, u, 0)
-                                z = pre(acc[f, j, c, :, 2 * h + e])
-                                rg = np.where(z > 0, 1.0, np.where((z == 0) & (not flax), 0.5, 0.0))
-                                d = gq[bi, r0 * WO + uc, co + e] * rg
-                                dz[bi, (r0 * WO + uc)[ok], (co + e)[ok]] = d[ok]
-                                dbs[cta, warp, :, j, e] += np.where(ok, d, 0).astype(np.float32)
+    dz = np.full((n, Hd * Wd, s.Co), np.nan)
+    dbs = np.zeros((grid, RG.CW, 32, nj, 2), np.float32)
+    relu_d = lambda z: np.where(z > 0, 1.0, np.where((z == 0) & (not flax), 0.5, 0.0))
+    for cta, run in enumerate(_route_tiles(RG, n * NB, NB, R, HO, WO, grid)):
+        for bi, r0, units, tiles in run:
+            hs = _route_halo(xv[bi], RG, R, RG.U * r0 - G.PH)
+            gs = _tma_box(_strided(gq[bi], r0, 0, R, WO, 1), R, WO, RG.DROW)
+            stg = np.full(RG.staging_bytes(s.W, R) // 2, np.nan)
+            for wg, q in tiles:
+                acc = np.zeros((RG.NT, 64, RG.N))
+                for ks in range(RG.KSTEPS):
+                    for f in range(RG.NT):
+                        a = _frag16(_ldsm(hs, _route_a_addr(RG, q, units, s.W, pb, f, ks)))
+                        acc[f] += a.reshape(64, 16) @ bsteps[ks]
+                regs = np.zeros((RG.NT, 4, RG.N // 2, 32))  # [tile, warp, register, lane]
+                for idx, (row, col) in enumerate(_epilogue_lanes(RG.N)):
+                    i, wl = divmod(idx, 4)
+                    regs[:, wl, i] = acc[:, row, col]
+                for wl in range(4):
+                    warp = 4 * wg + wl
+                    for h in range(1 if G.POOL else 2):
+                        # pooled: the thread's window; else its position
+                        v = q * 32 + 8 * wl + _G if G.POOL else q * 64 + 16 * wl + _G + 8 * h
+                        ok = v < units
+                        vc = np.where(ok, v, 0)
+                        for j in range(nj):
+                            for e in range(2):
+                                c = 8 * j + 2 * _T + e
+                                pre = lambda a: _bf16(_bf16(a) + b[c])
+                                gv = gs[RG.row_offset(vc, j) // 2 + 2 * _T + e]
+                                if G.POOL:
+                                    z = np.stack([pre(regs[qq >> 1, wl, 4 * j + 2 * (qq & 1) + e])
+                                                  for qq in range(4)])
+                                    d = _pool_route_lanes(z, gv, flax)
+                                    uy, ux = vc // WO, vc % WO
+                                    u = [(2 * uy + (qq >> 1)) * Wd + 2 * ux + (qq & 1)
+                                         for qq in range(4)]
+                                else:
+                                    d = (gv * relu_d(pre(regs[0, wl, 4 * j + 2 * h + e])))[None]
+                                    u = [vc]
+                                for dq, uq in zip(d, u):
+                                    stg[(RG.row_offset(uq, j) // 2 + 2 * _T + e)[ok]] = dq[ok]
+                                    dq32 = np.where(ok, dq, 0).astype(np.float32)
+                                    dbs[cta, warp, :, j, e] += dq32
+            # the TMA store: the box's rows inside dz (the rest clipped)
+            for u in range(min(RG.U * R, Hd - RG.U * r0) * Wd):
+                for v in range(nj):
+                    o = RG.row_offset(u, v) // 2
+                    dz[bi, RG.U * r0 * Wd + u, v * 8: v * 8 + 8] = stg[o: o + 8]
     for o in (4, 8, 16):  # __shfl_xor_sync
         dbs = dbs + dbs[:, :, _LANE ^ o]
-    red = np.zeros((grid, _WARPS, s.Co), np.float32)
-    for j in range(G.NJ):
+    red = np.zeros((grid, RG.CW, s.Co), np.float32)
+    for j in range(nj):
         for e in range(2):
             red[:, :, 8 * j + 2 * _T[:4] + e] = dbs[:, :, :4, j, e]
     dbpart = np.zeros((grid, s.Co), np.float32)
-    for wi in range(_WARPS):
-        dbpart += red[:, wi]
+    for k in range(RG.WGS):  # the warps of a warpgroup, then the warpgroups
+        part = np.zeros((grid, s.Co), np.float32)
+        for i in range(4):
+            part += red[:, 4 * k + i]
+        dbpart += part
     return dz.reshape(n, Hd, Wd, s.Co), dbpart
 
 
@@ -404,10 +594,10 @@ _ROUTE = [("block0_uint8", 10, 2, 3, True), ("block0", 8, 3, 2, True),
     ids=[f"{n}-{hw}-R{r}-grid{gr}-{'flax' if f else 'reference'}" for n, hw, r, gr, f in _ROUTE],
 )
 def test_route_epilogue_emulated_matches_the_gemm_view(name, size, R, grid, flax):
-    """The route epilogue, lane by lane on the kernel's accumulators at
-    B=3 on tie inputs: dz bit-exact against the GEMM view's route of the
-    float64 sums (every dz element written, block 2's 9th row and column
-    never formed), and the CTAs' db partials adding up to db."""
+    """route_kernel lane by lane at B=3 on tie inputs: dz bit-exact
+    against the GEMM view's route of the float64 sums (every dz element
+    stored, block 2's 9th row and column never formed), and the CTAs' db
+    partials adding up to db."""
     s = dataclasses.replace(SPECS[name], H=size, W=size)
     x, w, b, g = _tie_inputs(s, seed=400 + size + R, batch=3)
     w, b = _bf16(w), _bf16(b)
@@ -428,9 +618,9 @@ _FLAX_ROUTE = [("block1", 10, 3, 2), ("block2", 11, 2, 3), ("block3", 8, 3, 2)]
 @pytest.mark.parametrize("name,size,R,grid", _FLAX_ROUTE,
                          ids=[f"{n}-{hw}-R{r}-grid{gr}" for n, hw, r, gr in _FLAX_ROUTE])
 def test_route_epilogue_emulated_takes_flax_rule_as_jax_does(name, size, R, grid):
-    """The route epilogue under flax's rule (relu'(0) = 0, the window's
-    first maximum), lane by lane on blocks 1-3 at B=3 on tie inputs: dz
-    bit-exact against jax.vjp of flax's nn.relu + nn.max_pool at JAX's own
+    """route_kernel under flax's rule (relu'(0) = 0, the window's first
+    maximum), lane by lane on blocks 1-3 at B=3 on tie inputs: dz bit-exact
+    against jax.vjp of flax's nn.relu + nn.max_pool at JAX's own
     pre-activations. x on a grid of 1/8 and w of 1/64 make every partial
     sum exact in f32, so JAX's pre-activations are the kernel's."""
     s = dataclasses.replace(SPECS[name], H=size, W=size)
@@ -445,6 +635,29 @@ def test_route_epilogue_emulated_takes_flax_rule_as_jax_does(name, size, R, grid
     assert np.array_equal(dz, dz_jax), name
     assert np.abs(dz_jax).sum() > 0
     np.testing.assert_allclose(dbpart.sum(0), dz_jax.sum(axis=(0, 1, 2)), rtol=1e-5, atol=1e-5)
+
+
+#: wider frames, where a band holds several tiles and 8 windows of an
+#: ldmatrix wrap an output row; three warpgroups on block 0, two on block 1
+_ROUTE_WIDE = [("block0", 20, 3, 2, 3), ("block1", 26, 3, 3, 2), ("block2", 21, 4, 2, 3),
+               ("block3", 18, 5, 3, 2)]
+
+
+@pytest.mark.parametrize("name,size,R,grid,wgs", _ROUTE_WIDE,
+                         ids=[f"{n}-{hw}-R{r}-grid{gr}-wgs{k}" for n, hw, r, gr, k in _ROUTE_WIDE])
+def test_route_emulated_with_several_tiles_a_band(name, size, R, grid, wgs):
+    """route_kernel at B=2 where bands hold several tile pairs shared
+    round-robin by the warpgroups, tiles wrap output rows and the padded
+    plane rows take the wrap: dz bit-exact against the GEMM view's route
+    under flax's rule, db partials adding up."""
+    s = dataclasses.replace(SPECS[name], H=size, W=size)
+    x, w, b, g = _tie_inputs(s, seed=800 + size + R, batch=2)
+    w, b = _bf16(w), _bf16(b)
+    dz, dbpart = _emulate_route(x, w, b, g, s, R, grid, True, wgs)
+    ref = _route_np(_bf16(_bf16(_acc64(x, w, s)) + b), g, s, True)
+    assert not np.isnan(dz).any()
+    assert np.array_equal(dz, ref), name
+    np.testing.assert_allclose(dbpart.sum(0), ref.sum(axis=(0, 1, 2)), rtol=1e-5, atol=1e-5)
 
 
 def _dgrad_spec(s: ConvSpec) -> ConvSpec:
@@ -914,6 +1127,144 @@ def test_wgrad_dz_tile_reads_back_the_positions(name):
     assert WG.dz_bytes(Wd, R) % 1024 == 0
 
 
+_ROUTE_ROUNDS = [("block0", 84, 3, 4), ("block0", 84, 4, 3), ("block1", 42, 3, 5),
+                 ("block1", 42, 4, 3), ("block2", 21, 3, 7), ("block2", 21, 4, 2),
+                 ("block3", 10, 6, 3), ("block3", 10, 4, 5)]
+
+
+@pytest.mark.parametrize("name,size,R,grid", _ROUTE_ROUNDS,
+                         ids=[f"{n}-{hw}-R{r}-grid{gr}" for n, hw, r, gr in _ROUTE_ROUNDS])
+def test_route_tiles_cover_every_window_once(name, size, R, grid):
+    """route_kernel's schedule at B=3 (contiguous runs of items, tiles
+    round-robin over the warpgroups across a CTA's items): every window
+    (position) of every band, the ragged last band included, is stored by
+    exactly one thread once, every dz position of the band once; A's rows
+    stay inside their band; a CTA's warpgroups differ by at most one tile."""
+    s = dataclasses.replace(SPECS[name], H=size, W=size)
+    RG = _RGeom(s)
+    HO, WO = s.H // RG.U, s.W // RG.U
+    Wd = WO * RG.U
+    NB = -(-HO // R)
+    stored = np.zeros((3, HO * WO), int)
+    dz_hits = np.zeros((3, HO * RG.U * Wd), int)
+    for run in _route_tiles(RG, 3 * NB, NB, R, HO, WO, grid):
+        per_wg = np.zeros(RG.WGS, int)
+        for bi, r0, units, tiles in run:
+            for wg, q in tiles:
+                per_wg[wg] += 1
+                rows_a = (np.arange(RG.MT)[:, None] if RG.G.POOL else np.arange(64)[:, None])
+                assert (np.minimum(q * RG.MT + rows_a, units - 1) < units).all()
+                for wl in range(4):
+                    for h in range(1 if RG.G.POOL else 2):
+                        v = (q * 32 + 8 * wl + _G) if RG.G.POOL else (q * 64 + 16 * wl + _G + 8 * h)
+                        v = v[v < units]
+                        stored[bi, r0 * WO + v] += 1
+                        if RG.G.POOL:
+                            for qq in range(4):
+                                u = (2 * (v // WO) + (qq >> 1)) * Wd + 2 * (v % WO) + (qq & 1)
+                                dz_hits[bi, 2 * r0 * Wd + u] += 1
+                        else:
+                            dz_hits[bi, r0 * WO + v] += 1
+        assert per_wg.max() - per_wg.min() <= 1, per_wg
+    assert (stored == 1).all() and (dz_hits == 1).all()
+
+
+@pytest.mark.parametrize("name", ["block0", "block1", "block2", "block3"])
+def test_route_weight_panels_read_back_the_hwio_weights(name):
+    """The route's weights as loaded from the forward's HWIO w, read through
+    the MN-major descriptors of its k16 steps: B[k = (ky, kx, ci)][co] =
+    w[ky][kx][ci][co] unflipped, Ci = 4's kernel rows padded to KROW = 32
+    with zeros (the forward's 10 k16 steps), each weight read once."""
+    s = SPECS[name]
+    RG = _RGeom(s)
+    w = 1.0 + np.arange(s.kh * s.kw * s.Ci * s.Co, dtype=np.float64).reshape(s.kh, s.kw, s.Ci, s.Co)
+    got = np.concatenate([_route_b(_route_weights(w, RG), RG, ks) for ks in range(RG.KSTEPS)])
+    want = w.reshape(s.kh, s.kw * s.Ci, s.Co)
+    if RG.G.ROW:
+        pad = np.zeros((s.kh, RG.G.KROW - s.kw * s.Ci, s.Co))
+        want = np.concatenate([want, pad], axis=1)
+    assert np.array_equal(got, want.reshape(-1, s.Co))
+    assert np.unique(got[got != 0]).size == w.size
+    assert RG.KSTEPS == {"block0": 10, "block1": 50, "block2": 32, "block3": 36}[name]
+
+
+@pytest.mark.parametrize("name", ["block0", "block1", "block2", "block3"])
+def test_route_dz_staging_box_reads_back_as_the_wgrad_reads_dz(name):
+    """The dz staging box as the route's epilogue writes it (4 bytes a
+    thread at row_offset of each window position), written out by the TMA
+    store, then read as the wgrad reads a band of dz (WGeom::dz_offset of
+    its TMA box): every position's channels in place; the box a whole
+    number of 1024-byte swizzle periods."""
+    s = SPECS[name]
+    RG, WG = _RGeom(s), _WGeom(s)
+    WO, R = s.W // RG.U, 3
+    Wd = WO * RG.U
+    vals = 1.0 + np.arange(RG.U * R * Wd * s.Co, dtype=np.float64).reshape(-1, s.Co)
+    stg = np.full(RG.staging_bytes(s.W, R) // 2, np.nan)
+    for v in range(R * WO):  # each thread's window (position), all channel pairs
+        for qq in range(4 if RG.G.POOL else 1):
+            u = ((2 * (v // WO) + (qq >> 1)) * Wd + 2 * (v % WO) + (qq & 1)) if RG.G.POOL else v
+            for j in range(s.Co // 8):
+                at = RG.row_offset(u, j) // 2 + 2 * _T
+                stg[at], stg[at + 1] = vals[u, 8 * j + 2 * _T], vals[u, 8 * j + 2 * _T + 1]
+    # the TMA store writes the box out row-major; the wgrad's box of the same
+    # rows lands at WGeom::dz_offset
+    out = np.stack([np.concatenate([stg[RG.row_offset(u, v) // 2: RG.row_offset(u, v) // 2 + 8]
+                                    for v in range(s.Co // 8)]) for u in range(len(vals))])
+    tile = np.full(WG.dz_bytes(Wd, RG.U * R) // 2, np.nan)
+    for u in range(len(vals)):
+        for v in range(s.Co // 8):
+            o = WG.dz_offset(u, v) // 2
+            tile[o: o + 8] = out[u, v * 8: v * 8 + 8]
+    back = np.stack([np.concatenate([tile[WG.dz_offset(u, v) // 2: WG.dz_offset(u, v) // 2 + 8]
+                                     for v in range(s.Co // 8)]) for u in range(len(vals))])
+    assert np.array_equal(out, vals) and np.array_equal(back, vals)
+    n = len(vals) * RG.DROW // 2  # the same bytes: one layout
+    assert np.array_equal(stg[:n], tile[:n])
+    assert RG.staging_bytes(s.W, R) % 1024 == 0
+
+
+@pytest.mark.parametrize("name", ["block0", "block1", "block2", "block3"])
+def test_route_ldmatrix_rows_fall_on_distinct_banks(name):
+    """At full frame size, over every tile of a whole sample's band and
+    every k step, each ldmatrix phase of route_kernel's A (8 rows of 16
+    bytes) is one wavefront: a pooled tile's 8 windows, 2 pixels apart in
+    the image, are 8 consecutive slots of a parity plane, and the plane
+    rows padded to WO mod 8 slots keep a row wrap on the bank sequence (so
+    do block 3's rows, padded to W mod 8)."""
+    from test_torch_conv_block import _wavefronts
+
+    s = SPECS[name]
+    RG = _RGeom(s)
+    HO, WO = s.H // RG.U, s.W // RG.U
+    units, pb = HO * WO, RG.plane_bytes(s.W, HO)
+    waves = np.concatenate([
+        _wavefronts(_route_a_addr(RG, q, units, s.W, pb, f, ks).reshape(-1), 16)
+        for q in range(-(-units // RG.MT)) for f in range(RG.NT) for ks in range(RG.KSTEPS)])
+    assert (waves == 1).all(), (name, waves.mean())
+
+
+@pytest.mark.parametrize("name", ["block0", "block1", "block2"])
+def test_route_tile_pair_takes_tile_0s_fragments_a_kernel_row_later(name):
+    """What route_kernel's fragment reuse rests on: in a pooled tile pair,
+    tile 1's A at kernel row ky (its windows' bottom pre-pool rows) is
+    tile 0's A at kernel row ky + 1, lane by lane and step by step, at
+    every tile of a band that wraps output rows (the kernel loads each
+    once, and 2 of every 2 * KH fragments become KH + 1)."""
+    s = SPECS[name]
+    RG = _RGeom(s)
+    HO, WO = s.H // RG.U, s.W // RG.U
+    R = 3
+    units, pb = R * WO, RG.plane_bytes(s.W, R)
+    spr = RG.KSTEPS // s.kh  # k steps a kernel row
+    for q in range(-(-units // RG.MT)):
+        for ks in range(RG.KSTEPS - spr):
+            assert np.array_equal(_route_a_addr(RG, q, units, s.W, pb, 1, ks),
+                                  _route_a_addr(RG, q, units, s.W, pb, 0, ks + spr))
+        assert not np.array_equal(_route_a_addr(RG, q, units, s.W, pb, 1, 0),
+                                  _route_a_addr(RG, q, units, s.W, pb, 0, 0))
+
+
 # -- the wrappers and the entry points ----------------------------------------
 
 
@@ -1037,3 +1388,36 @@ def test_rounding_flip_check_tells_a_rounding_from_a_rule_fault(case):
     n, explained = chip_smoke.rounding_flips(x, w, b, s, faulty, dz_ref, plain)
     assert n > 0 and not explained
     assert n / dz_ref.numel() < chip_smoke.DZ_MISMATCH
+
+
+def test_rounding_flip_check_takes_uint8_frames_as_the_blocks_scale_them():
+    """``rounding_flips`` on block 0's uint8 frames (chip_smoke.py's
+    ``[bwd]`` holds the route's uint8 path against route_plain with it):
+    the exact sums are taken over the frames as the blocks see them, uint8
+    times bf16(1/255) rounded once, so a route from another f32 order of
+    those sums is explained, and a relu that takes gradient 1 at 0 is not."""
+    import chip_smoke
+
+    s = cb.ba3c_specs()[0]
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randint(0, 256, (16, s.H, s.W * s.Ci), generator=gen, dtype=torch.uint8)
+    _, w, b, g = chip_smoke.bwd_inputs(s, 16, "random", "cpu", seed=11)
+    dz_ref, _ = cb.route_plain(x, w, b, g, s, flax_block)
+    relu, pool = _rules(flax_block)
+    xv = (x.to(torch.bfloat16) * torch.tensor(INV255, dtype=torch.bfloat16)).to(torch.float64)
+    sf = dataclasses.replace(s, scale_uint8=False)
+    acc = cb._conv(xv, w, sf, torch.float64)
+    unit = 2.0 ** -24 * cb._conv(xv.abs(), w.abs(), sf, torch.float64)
+    shift = (torch.rand(acc.shape, generator=torch.Generator().manual_seed(5),
+                        dtype=torch.float64) * 2 - 1) * 15 * unit
+    other_order = (acc + shift).float().to(torch.bfloat16)
+    n, explained = chip_smoke.rounding_flips(
+        x, w, b, s, _route_at(other_order, b, g, s, relu, pool), dz_ref, flax_block)
+    assert n > 0 and explained
+
+    def relu_fault(z):  # gradient 1 at z == 0
+        return torch.where(z >= 0, z, torch.zeros((), dtype=z.dtype))
+
+    faulty = _route_at(cb._conv(x, w, s, torch.bfloat16), b, g, s, relu_fault, pool)
+    n, explained = chip_smoke.rounding_flips(x, w, b, s, faulty, dz_ref, flax_block)
+    assert n > 0 and not explained
