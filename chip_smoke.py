@@ -4,7 +4,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--parity`` only builds the kernels and holds each against its plain
 version, forward and backward, the first call to make after a kernel
-changes; ``--trace`` runs only the ``[trace]`` phase; ``--kernel-times 1,128,256,2560`` also times every block's
+changes; ``--trace`` runs only the ``[trace]`` phase, ``--int8`` only the
+``[int8]`` phase; ``--kernel-times 1,128,256,2560`` also times every block's
 forward and backward kernels at those batches and prints them as one JSON
 line, to compare two source trees in one call.)
 
@@ -34,7 +35,17 @@ forward over 150 states), 2 epochs and a ``--load`` epoch; and
 ``[overlap]``: ``--trainer tpu_fused_ba3c --overlap`` (the actor on its
 own CUDA stream beside the learner, lag 1, one learner forward over 2688
 states), 2 epochs and a ``--load`` epoch, lag 0 at learning rate 0
-bit-equal with the fused step, and ``probe_overlap``; and ``[games]``:
+bit-equal with the fused step, and ``probe_overlap``; and ``[int8]``: the
+int8 rung (quantize/) -- the int8 arm's probe and ``auto``'s arm on the
+card, an offline calibration on the card against the CPU's, both arms at
+buckets 1-1024 against the CPU (the int32 accumulators against the exact
+product of the card's own int8 inputs) and against the f32 forward, the
+served rows/s, forward times and peak memory of f32, bf16, int8 and
+folded, and an epoch of the sync trainer with ``--rollout_dtype int8
+--quant_calibrate 8`` (the live switch) and of ``--overlap`` with
+``--quant_calibrate 2``; and ``[serve]``'s flags: a sync epoch with
+``--serve_slo_ms``, a canary on a quarter of the traffic and a shadow,
+both from ``[resume]``'s checkpoint; and ``[games]``:
 the seven other on-device games stepped on the card and on the CPU from
 the same draws (equal frames, rewards, dones and state), BASELINE config
 #5 (``--env jax:coinrun --batch_size 20480 --rollout_len 20 --gamma
@@ -1295,7 +1306,7 @@ def phase_env_probe(card: str) -> dict:
     return found
 
 
-def phase_resume(dev, states):
+def phase_resume(dev, states, keep_ckpt=None):
     """A run kept and resumed through the CLI at full width (jax:pong, 128
     envs x 20 steps, 2 updates an epoch, an 8-env greedy eval of 200
     steps): one epoch; a resume under ``hyper.txt``'s learning rate 0 that
@@ -1303,7 +1314,8 @@ def phase_resume(dev, states):
     budget spent that adds no epoch; ``--task eval|play --load``, which
     must serve the params read from the checkpoint's file directly; the
     checkpoint's greedy actions on Pong states against a plain BA3CNet with
-    those params; a save -> restore round trip on the card.
+    those params; a save -> restore round trip on the card. ``keep_ckpt``:
+    a path to copy the checkpoints to (the [serve] phase's policies).
     Returns the phase's numbers and the launches of each part."""
     import logging
     import tempfile
@@ -1447,6 +1459,10 @@ def phase_resume(dev, states):
             and all(torch.equal(sa[pa][f], sb[pb][f]) for pa, pb in
                     zip(a.optimizer.params, b.optimizer.params) for f in ("exp_avg", "exp_avg_sq", "step"))
             and all(sb[pb]["exp_avg"].device == dev for pb in b.optimizer.params))
+        if keep_ckpt is not None:
+            import shutil
+
+            shutil.copytree(ckdir, keep_ckpt)
     wall = time.perf_counter() - t0
     for k, ok in checks.items():
         log(f"[resume] {k}: {'ok' if ok else 'FAIL'}")
@@ -1521,8 +1537,11 @@ def _sync_run(argv, dev, tag: str = "[sync]"):
 
 
 def _sync_checks(run, steps: int, exact_serving: bool, tag: str = "[sync]",
-                 samples_per_step: int = SYNC_B):
-    """The invariants of one ZMQ-trainer run (see phase_sync)."""
+                 samples_per_step: int = SYNC_B, serve_fwd_want=None):
+    """The invariants of one ZMQ-trainer run (see phase_sync).
+    ``serve_fwd_want``, where given, is the exact count of the serving
+    forward's launches (an int8 or a shadow-mirroring predictor's), in
+    place of 4 a served batch."""
     L, P, M = run["launches"], run["predictor"], run["master"]
     batches = int(P["batches_total"])
     want = {"conv_block_vjp": 4 * steps, "conv_block_route": 4 * steps,
@@ -1531,11 +1550,15 @@ def _sync_checks(run, steps: int, exact_serving: bool, tag: str = "[sync]",
     if got != want:
         raise AssertionError(f"{tag} backward launches {got}, expected {want} (4/4/3/4 a step)")
     serve_fwd = L["conv_block_fwd"] - 4 * steps
-    if exact_serving and serve_fwd != 4 * (batches + SYNC_BUCKETS):
+    if serve_fwd_want is not None:
+        if serve_fwd != serve_fwd_want:
+            raise AssertionError(f"{tag} {serve_fwd} serving forward launches, expected "
+                                 f"{serve_fwd_want}")
+    elif exact_serving and serve_fwd != 4 * (batches + SYNC_BUCKETS):
         raise AssertionError(
             f"{tag} {L['conv_block_fwd']} forward launches: not 4 a learner step ({steps}) "
             f"+ 4 a served batch ({batches}) + 4 a warmup bucket ({SYNC_BUCKETS})")
-    if serve_fwd < 4 * batches:
+    if serve_fwd_want is None and serve_fwd < 4 * batches:
         raise AssertionError(f"{tag} {serve_fwd} serving forwards for {batches} batches")
     if P["param_publishes_total"] < steps:  # --publish_every 1
         raise AssertionError(f"{tag} {P['param_publishes_total']} publishes for {steps} steps")
@@ -2890,6 +2913,427 @@ def phase_trace(dev, states) -> dict:
     return out
 
 
+INT8_BUCKETS = (1, 16, 128, 256, 1024)  # card against CPU, both arms
+INT8_REF_IMAGES = 16      # images of a bucket held against the exact CPU reference
+INT8_CALIB_B, INT8_CALIB_N = 256, 4  # the offline calibration: 4 batches of 256 frames
+INT8_SCALE_REL = 1e-4     # the card's scales against the CPU's, relative
+INT8_OUT_TOL = 1e-3       # logits and value, card against CPU (tests/test_torch_quantize.py)
+INT8_BAND = (0.1, 0.05)   # log mu, V against f32 (the JAX package's tests/test_quantize.py)
+INT8_SERVE_B = 256        # the served rows/s windows' bucket
+INT8_SERVE_S = 3.0        # seconds a served rows/s window measures
+INT8_ROUNDS = 2           # rounds of the four dtypes, the order reversed each round
+INT8_SYNC_STEPS = 50      # learner steps of the int8 sync epoch
+INT8_SYNC_CALIB = 8       # --quant_calibrate of the sync epoch
+INT8_OV_CALIB = 2         # --quant_calibrate of the --overlap epoch
+#: launches per int8 --overlap update: the learner's (one forward over
+#: T*B + B states, one backward of each block); the int8 actor launches none
+INT8_OV_PER_UPDATE = {"conv_block_fwd": 4, "conv_block_vjp": 4, "conv_block_route": 4,
+                      "conv_block_dgrad": 3, "conv_block_wgrad": 4}
+
+
+def _log_lines(fn):
+    """Run ``fn()`` and return (its result, the "ba3c" logger's lines)."""
+    import logging
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    lines, logger = Lines(), logging.getLogger("ba3c")
+    level = logger.level
+    logger.addHandler(lines)
+    logger.setLevel(logging.INFO)
+    try:
+        return fn(), lines.lines
+    finally:
+        logger.removeHandler(lines)
+        logger.setLevel(level)
+
+
+def _served_rows_per_s(pred, frames, seconds: float, clients: int = 4, rows: int = 64) -> float:
+    """Closed-loop load on a started predictor: ``clients`` threads each
+    put a block of ``rows`` states and wait for its actions, for
+    ``seconds``; the rows served a second."""
+    import numpy as np
+
+    served = [0] * clients
+    errors = []
+    stop = time.perf_counter() + seconds
+
+    def client(c):
+        i = c
+        try:
+            while time.perf_counter() < stop:
+                done = threading.Event()
+                block = frames[(i * rows) % max(len(frames) - rows, 1):][:rows]
+                pred.put_block_task(np.ascontiguousarray(block),
+                                    lambda a, v, lp, e=done: e.set(),
+                                    shed_callback=lambda r, e=done: (errors.append(r), e.set()))
+                if not done.wait(60):
+                    errors.append("timeout")
+                    return
+                served[c] += len(block)
+                i += clients
+        except Exception as e:  # surfaced below: a client that died fails the phase
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"[int8] served-rows window: {errors[:3]}")
+    return sum(served) / wall
+
+
+def int8_card_vs_cpu(dev, net, net_cpu, table, table_cpu, frames) -> dict:
+    """Both arms at each of INT8_BUCKETS on the card against the CPU, and
+    against the card's f32 forward. The int8 arm: each layer's int32
+    accumulators on the card equal the exact CPU product of the card's own
+    int8 inputs (the im2col in float64, whose integer sums are exact here),
+    and its int8 inputs, logits and value equal the CPU's int8 arm on the
+    same frames (INT8_REF_IMAGES of a bucket); the folded arm within
+    INT8_OUT_TOL of the CPU's; both inside INT8_BAND of the card's f32
+    forward on the whole bucket."""
+    import numpy as np
+    import torch
+
+    from distributed_ba3c_tpu_torch.quantize.qforward import im2col_int8, make_quant_apply
+
+    out = {}
+    arms = {arm: (make_quant_apply(net, arm, device=dev),
+                  make_quant_apply(net_cpu, arm, device="cpu")) for arm in ("int8", "folded")}
+    worst = {"acc_mismatches": 0, "xq_diff_share": 0.0, "int8_out": 0.0, "folded_out": 0.0,
+             "band_logmu": 0.0, "band_v": 0.0}
+    for nb in INT8_BUCKETS:
+        x = torch.from_numpy(frames[:nb]).to(dev)
+        n = min(nb, INT8_REF_IMAGES)
+        xc = torch.from_numpy(frames[:n])
+        with torch.inference_mode():
+            ref = net(x)
+            lp_ref = torch.log_softmax(ref.logits, -1)
+            row = {}
+            for arm, (qnet, qnet_cpu) in arms.items():
+                rec, rec_cpu = [], []
+                got = torch.func.functional_call(qnet, table, (x,), {"record": rec})
+                cpu = torch.func.functional_call(qnet_cpu, table_cpu, (xc,), {"record": rec_cpu})
+                d_out = max(float((got.logits[:n].cpu() - cpu.logits).abs().max()),
+                            float((got.value[:n].cpu() - cpu.value).abs().max()))
+                band = (float((torch.log_softmax(got.logits, -1) - lp_ref).abs().max()),
+                        float((got.value - ref.value).abs().max()))
+                row[arm] = {"max_abs_vs_cpu": d_out, "band_logmu": band[0], "band_v": band[1]}
+                worst[f"{arm}_out"] = max(worst[f"{arm}_out"], d_out)
+                worst["band_logmu"] = max(worst["band_logmu"], band[0])
+                worst["band_v"] = max(worst["band_v"], band[1])
+                if arm != "int8":
+                    continue
+                mism, diff = 0, 0.0
+                for (name, xq, acc), (_, xq_cpu, _) in zip(rec, rec_cpu):
+                    xq_n = xq[:n].cpu()
+                    d = (xq_n.int() - xq_cpu.int()).abs()
+                    diff = max(diff, float((d > 0).float().mean()))
+                    if int(d.max()) > 1:
+                        raise AssertionError(f"[int8] B={nb} {name}: int8 inputs differ by {int(d.max())}")
+                    kq = table_cpu[f"{name}.kernel_q"]
+                    if name == "Dense_0":
+                        cols = xq_n
+                        rows = n
+                    else:
+                        k = net.conv_kernels[int(name.split("_")[1])]
+                        cols = im2col_int8(xq_n, k, kq.shape[0])
+                        rows = cols.shape[0]
+                    exact = (cols.double() @ kq.double()).long()
+                    mism += int((acc[:rows].cpu().long() != exact).sum())
+                row["int8"]["acc_mismatches"] = mism
+                row["int8"]["xq_diff_share"] = diff
+                worst["acc_mismatches"] += mism
+                worst["xq_diff_share"] = max(worst["xq_diff_share"], diff)
+        out[nb] = row
+        log(f"[int8] B={nb}: " + "; ".join(
+            f"{arm} " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                  for k, v in r.items()) for arm, r in row.items()))
+    torch.cuda.synchronize()
+    fails = []
+    if worst["acc_mismatches"]:
+        fails.append(f"{worst['acc_mismatches']} int32 accumulators off the exact CPU product")
+    if worst["xq_diff_share"] > 1e-4:
+        fails.append(f"int8 inputs differ from the CPU's on {worst['xq_diff_share']:.3g}")
+    for arm in ("int8", "folded"):
+        if not worst[f"{arm}_out"] <= INT8_OUT_TOL:
+            fails.append(f"{arm} arm {worst[f'{arm}_out']:.3g} from the CPU")
+    if not (worst["band_logmu"] < INT8_BAND[0] and worst["band_v"] < INT8_BAND[1]):
+        fails.append(f"outside the bands: {worst['band_logmu']:.3g}, {worst['band_v']:.3g}")
+    if fails:
+        raise AssertionError("[int8] " + "; ".join(fails))
+    return {"by_bucket": out, "worst": worst}
+
+
+def int8_times(dev, net, table, frames, spec) -> dict:
+    """Served rows/s at bucket INT8_SERVE_B for f32, bf16, int8 and folded
+    (BatchedPredictor, closed-loop 64-row blocks, INT8_ROUNDS rounds in
+    alternating order); the device ms of one forward at B=256 and 1024 of
+    each (``device_times``, and CUDA events around the call); the peak
+    memory of a forward at 1024 above what was allocated before it."""
+    import torch
+
+    from distributed_ba3c_tpu_torch import telemetry
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+    from distributed_ba3c_tpu_torch.predict.server import BatchedPredictor
+    from distributed_ba3c_tpu_torch.quantize.qforward import make_quant_apply
+
+    dtypes = ("float32", "bfloat16", "int8", "folded")
+    preds = {}
+    for dt in dtypes:
+        kw = {"rollout_dtype": dt}
+        if dt in ("int8", "folded"):
+            kw = {"rollout_dtype": "int8", "quant_spec": spec}
+        # each predictor swaps the served params into a module of its own
+        preds[dt] = BatchedPredictor(BA3CNet(6, device=dev), net.state_dict(),
+                                     batch_size=INT8_SERVE_B, device=dev,
+                                     tele_role=f"predictor.{dt}", **kw)
+        if dt == "folded":  # the same int8 table served through the folded arm
+            preds[dt]._fwd_model = make_quant_apply(net, "folded", device=dev)
+        preds[dt].warmup(frames.shape[1:])
+        preds[dt].start()
+    rows_per_s = {dt: [] for dt in dtypes}
+    try:
+        for r in range(INT8_ROUNDS):
+            for dt in (dtypes if r % 2 == 0 else dtypes[::-1]):
+                rows_per_s[dt].append(_served_rows_per_s(preds[dt], frames, INT8_SERVE_S))
+    finally:
+        for p in preds.values():
+            p.stop()
+            p.join(10)
+    batch_rows = {dt: telemetry.registry(f"predictor.{dt}").scalars() for dt in dtypes}
+    mean_rows = {dt: t["rows_total"] / max(t["batches_total"], 1) for dt, t in batch_rows.items()}
+
+    bf16 = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+            for k, v in net.state_dict().items()}
+    q8 = make_quant_apply(net, "int8", device=dev)
+    qf = make_quant_apply(net, "folded", device=dev)
+    fns, peak = {}, {}
+    for nb in (256, 1024):
+        x = torch.from_numpy(frames[:nb]).to(dev)
+        calls = {"float32": lambda x=x: net(x),
+                 "bfloat16": lambda x=x: torch.func.functional_call(net, bf16, (x,)),
+                 "int8": lambda x=x: torch.func.functional_call(q8, table, (x,)),
+                 "folded": lambda x=x: torch.func.functional_call(qf, table, (x,))}
+        for dt, fn in calls.items():
+            fns[f"{dt}_b{nb}"] = fn
+            if nb == 1024:
+                with torch.inference_mode():
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    fn()
+                    torch.cuda.synchronize()
+                    peak[dt] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with torch.inference_mode():
+        dev_ms = device_times(fns)
+        event_ms = {k: time_ms(fn, iters=10) for k, fn in fns.items()}
+    out = {"served_rows_per_s_b256": rows_per_s, "mean_rows_per_batch": mean_rows,
+           "device_ms": {k: v["device_ms"] for k, v in dev_ms.items()},
+           "device_ms_by_kernel": {k: v["by_kernel"] for k, v in dev_ms.items()},
+           "event_ms": event_ms, "peak_gib_b1024": peak}
+    log("[int8] served rows/s at bucket 256, rounds in alternating order: " + ", ".join(
+        f"{dt} {[round(v, 1) for v in vs]}" for dt, vs in rows_per_s.items()))
+    log("[int8] one forward, device ms (events ms): " + ", ".join(
+        f"{k} {_ms(out['device_ms'][k])} ({event_ms[k]:.4f})" for k in fns))
+    for k in ("int8_b256", "folded_b256"):
+        top = sorted(out["device_ms_by_kernel"][k].items(), key=lambda kv: -kv[1])[:8]
+        log(f"[int8] {k} by kernel, device ms: " + "; ".join(f"{n} {v:.4f}" for n, v in top))
+    log("[int8] peak memory of a forward at B=1024, GiB above its start: " + ", ".join(
+        f"{dt} {v:.3f}" for dt, v in peak.items()))
+    return out
+
+
+def int8_sync_epoch(dev) -> dict:
+    """One epoch of the sync trainer on the [sync] plane with
+    ``--rollout_dtype int8 --quant_calibrate 8``: the spec freezes
+    (``quant_spec_frozen`` 1, 8 calibration batches), the plane switches in
+    place; 4 forward launches a served batch and a shadow batch before the
+    switch, 0 after; the learner's 4/4/3/4 a step; no shed row."""
+    import tempfile
+
+    base = ["--task", "train", "--trainer", "tpu_sync_ba3c", "--batch_size", str(SYNC_B),
+            "--steps_per_epoch", str(INT8_SYNC_STEPS), "--nr_eval", "0", "--max_epoch", "1",
+            "--env", "cpp:pong", "--wire", "block-shm", "--simulator_procs", str(SYNC_SIMS),
+            "--rollout_dtype", "int8", "--quant_calibrate", str(INT8_SYNC_CALIB)]
+    with tempfile.TemporaryDirectory() as logdir:
+        run, lines = _log_lines(lambda: _sync_run([*base, "--logdir", logdir], dev, "[int8]"))
+    P = run["predictor"]
+    batches, int8_b = int(P["batches_total"]), int(P["int8_batches_total"])
+    shadow = int(P["shadow_batches_total"])
+    frozen = _tele("predictor").get("quant_spec_frozen", 0.0)
+    want = 4 * ((batches - int8_b) + shadow + SYNC_BUCKETS)
+    arm = next((m for m in lines if "int8 forward, arm" in m), "no arm logged")
+    switched = next((m for m in lines if "serving int8" in m), "no switch logged")
+    log(f"[int8] sync epoch: {batches} served batches, {batches - int8_b} f32 before the switch "
+        f"({shadow} shadow), {int8_b} int8; calibration batches "
+        f"{P.get('quant_calib_batches_total')}, quant_spec_frozen {frozen}; launches "
+        f"{run['launches']} (serving forwards expected {want}); {arm}; {switched}")
+    if frozen != 1.0 or P.get("quant_calib_batches_total") != INT8_SYNC_CALIB or int8_b <= 0:
+        raise AssertionError("[int8] the sync epoch never switched to int8")
+    if batches - int8_b < INT8_SYNC_CALIB:
+        raise AssertionError(f"[int8] {batches - int8_b} f32 batches before a switch after "
+                             f"{INT8_SYNC_CALIB}")
+    _sync_checks(run, INT8_SYNC_STEPS, exact_serving=True, tag="[int8]",
+                 samples_per_step=SYNC_B, serve_fwd_want=want)
+    return {"launches": run["launches"], "numbers": _sync_numbers(run, INT8_SYNC_STEPS),
+            "batches": batches, "int8_batches": int8_b, "shadow_batches": shadow,
+            "arm": arm, "switched": switched}
+
+
+def int8_overlap_epoch(dev) -> dict:
+    """One epoch of ``--overlap`` with ``--rollout_dtype int8
+    --quant_calibrate 2`` (the [overlap] cell): the calibration's 2 f32
+    windows of the learner's forward (4 x 20 launches each), per update
+    the learner's 4/4/3/4/4 and no actor forward, the greedy eval's 4 a
+    step; finite metrics, the spec's hash and the actor's arm logged."""
+    import tempfile
+
+    from distributed_ba3c_tpu_torch.cli import main as cli_main
+
+    argv = ["--task", "train", "--trainer", "tpu_fused_ba3c", "--overlap", "--env", "jax:pong",
+            "--batch_size", str(TRAIN_B), "--rollout_len", str(TRAIN_T),
+            "--steps_per_epoch", str(OV_STEPS), "--nr_eval", "8", "--eval_max_steps", "200",
+            "--max_epoch", "1", "--rollout_dtype", "int8", "--quant_calibrate", str(INT8_OV_CALIB),
+            "--device", str(dev)]
+    with tempfile.TemporaryDirectory() as logdir:
+        set_launch_counts({k: 0 for k in COUNTED})
+        t0 = time.perf_counter()
+        rc, lines = _log_lines(lambda: cli_main([*argv, "--logdir", logdir]))
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        with open(os.path.join(logdir, "stat.json")) as f:
+            stats = json.load(f)
+    if rc != 0:
+        raise AssertionError(f"[int8] --overlap returned {rc}")
+    want = {k: OV_STEPS * n for k, n in INT8_OV_PER_UPDATE.items()}
+    want["conv_block_fwd"] += INT8_OV_CALIB * TRAIN_T * 4 + 200 * 4
+    spec_line = next((m for m in lines if "quant spec" in m and "int8 rollout" in m), None)
+    arm = next((m for m in lines if "overlap actor: int8 forward" in m), None)
+    _check_epochs(stats, "[int8] --overlap", ("loss", "entropy", "grad_norm", "mean_rho",
+                                              "value_lag_mae"))
+    log(f"[int8] --overlap epoch: launches {launches} (expected {want}); {spec_line}; {arm}; "
+        f"fps {stats[-1]['fps']:.1f}; mean_rho {stats[-1]['mean_rho']:.4f}; wall {wall:.1f} s")
+    if launches != want:
+        raise AssertionError(f"[int8] --overlap launches {launches}, expected {want}")
+    if spec_line is None or arm is None or not 0.0 < stats[-1]["mean_rho"] <= 1.0:
+        raise AssertionError("[int8] --overlap: no spec or arm logged, or mean_rho out of (0, 1]")
+    return {"launches": launches, "fps": stats[-1]["fps"], "spec": spec_line, "arm": arm,
+            "mean_rho": stats[-1]["mean_rho"], "wall_s": wall}
+
+
+def phase_int8(dev) -> dict:
+    """The int8 rung on the card (quantize/): the int8 arm's probe and
+    ``auto``'s arm (int8 expected; the phase fails, saying why, otherwise);
+    an offline calibration of 4 x 256 Pong frames on the card against the
+    same on the CPU (scales within INT8_SCALE_REL) and the quantized table
+    on the card bit-equal to the CPU's; both arms at each bucket against
+    the CPU and the f32 forward (``int8_card_vs_cpu``); the four dtypes'
+    served rows/s, forward times and peak memory (``int8_times``); then
+    the int8 sync epoch and the int8 ``--overlap`` epoch, whose launches
+    are this phase's path."""
+    import numpy as np
+    import torch
+
+    from distributed_ba3c_tpu_torch.models.a3c import BA3CNet
+    from distributed_ba3c_tpu_torch.quantize import qforward
+    from distributed_ba3c_tpu_torch.quantize.calibrate import calibrate_offline
+
+    t0 = time.perf_counter()
+    ok = qforward.int8_conv_supported(dev)
+    net = BA3CNet(6, device=dev, generator=torch.Generator().manual_seed(0))
+    auto = qforward.make_quant_apply(net, "auto").quant_arm
+    log(f"[int8] probe of the int8 arm on {torch.cuda.get_device_name(0)}: "
+        f"{qforward._INT8_OK[str(dev)]}; arm 'auto' resolves to {auto}")
+    if not ok or auto != "int8":
+        raise AssertionError(f"[int8] the int8 arm cannot run on the card: "
+                             f"{qforward._INT8_OK[str(dev)]}")
+    net_cpu = BA3CNet(6, device="cpu", generator=torch.Generator().manual_seed(0))
+    net_cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    blocks, _ = pong_states(16)
+    frames = np.concatenate(blocks)  # [1024, 84, 84, 4]
+    saved = launch_counts()
+    batches = [frames[i * INT8_CALIB_B:(i + 1) * INT8_CALIB_B] for i in range(INT8_CALIB_N)]
+    spec = calibrate_offline(net, net.state_dict(), batches)
+    spec_cpu = calibrate_offline(net_cpu, net_cpu.state_dict(), batches)
+    rel = {k: abs(spec.act_scales[k] - v) / v for k, v in spec_cpu.act_scales.items()}
+    table = qforward.quantize_params(net.state_dict(), spec)
+    table_cpu = qforward.quantize_params(net_cpu.state_dict(), spec)
+    same = all(torch.equal(table[k].cpu(), v) for k, v in table_cpu.items())
+    log(f"[int8] scales calibrated on the card ({spec.sha256()[:12]}) against the CPU "
+        f"({spec_cpu.sha256()[:12]}), relative: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in rel.items())
+        + f"; largest {max(rel.values()):.3g}; quantized table on the card = the CPU's: {same}")
+    if max(rel.values()) > INT8_SCALE_REL or not same:
+        raise AssertionError("[int8] the card's calibration or table is not the CPU's")
+    parity = int8_card_vs_cpu(dev, net, net_cpu, table, table_cpu, frames)
+    times = int8_times(dev, net, table, frames, spec)
+    set_launch_counts(saved)
+    sync = int8_sync_epoch(dev)
+    overlap = int8_overlap_epoch(dev)
+    wall = time.perf_counter() - t0
+    log(f"[int8] phase {wall:.1f} s")
+    return {"arm": auto, "probe": str(qforward._INT8_OK[str(dev)]),
+            "scale_rel": rel, "spec": spec.to_doc(), "parity": parity, "times": times,
+            "sync": {k: v for k, v in sync.items() if k != "launches"},
+            "overlap": {k: v for k, v in overlap.items() if k != "launches"},
+            "launches": {"sync": sync["launches"], "overlap": overlap["launches"]},
+            "wall_s": wall}
+
+
+SERVE_STEPS = 50        # learner steps of the [serve] epoch
+SERVE_SLO_MS = 200.0    # --serve_slo_ms
+SERVE_CANARY = 0.25     # --canary_fraction
+SERVE_SHARE = (0.15, 0.35)  # the canary's share of the served rows
+
+
+def phase_serve_flags(dev, ckpt: str) -> dict:
+    """The single serving plane's flags on the [sync] plane: one epoch with
+    ``--serve_slo_ms 200 --canary_load <ckpt> --canary_fraction 0.25
+    --shadow_load <ckpt>`` ([resume]'s checkpoint): the canary's share of
+    the served rows in SERVE_SHARE, shadow batches, no deadline miss and
+    no shed row by the epoch's end, 4 forward launches a served and a
+    shadow batch, the learner's 4/4/3/4; the served p99."""
+    import tempfile
+
+    argv = ["--task", "train", "--trainer", "tpu_sync_ba3c", "--batch_size", str(SYNC_B),
+            "--steps_per_epoch", str(SERVE_STEPS), "--nr_eval", "0", "--max_epoch", "1",
+            "--env", "cpp:pong", "--wire", "block-shm", "--simulator_procs", str(SYNC_SIMS),
+            "--serve_slo_ms", str(SERVE_SLO_MS), "--canary_load", ckpt,
+            "--canary_fraction", str(SERVE_CANARY), "--shadow_load", ckpt]
+    with tempfile.TemporaryDirectory() as logdir:
+        run = _sync_run([*argv, "--logdir", logdir], dev, "[serve]")
+    P, end = run["predictor"], run["at_last_epoch"]["predictor"]
+    rows, canary = P["rows_total"], P.get("policy_canary_rows_total", 0.0)
+    shadow = int(P["shadow_batches_total"])
+    numbers = {
+        "canary_share": canary / max(rows, 1), "rows": rows, "shadow_batches": shadow,
+        "deadline_misses_at_epoch_end": end.get("deadline_misses_total"),
+        "sheds_at_epoch_end": end.get("sheds_total"),
+        "serve_p99_ms_upper": run["serve_p99_us"] / 1e3,
+        **_sync_numbers(run, SERVE_STEPS),
+    }
+    log("[serve] canary/shadow/SLO epoch: " + ", ".join(
+        f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}" for k, v in numbers.items()))
+    if not SERVE_SHARE[0] <= numbers["canary_share"] <= SERVE_SHARE[1] or shadow <= 0:
+        raise AssertionError(f"[serve] canary share {numbers['canary_share']}, shadow {shadow}")
+    if end.get("deadline_misses_total", 1) != 0:
+        raise AssertionError(f"[serve] {end.get('deadline_misses_total')} rows missed their deadline")
+    _sync_checks(run, SERVE_STEPS, exact_serving=True, tag="[serve]", samples_per_step=SYNC_B,
+                 serve_fwd_want=4 * (int(P["batches_total"]) + shadow + SYNC_BUCKETS))
+    return {"launches": run["launches"], "numbers": numbers}
+
+
 COUNTED = ("conv_block_fwd", "conv_block_vjp", "conv_block_route", "conv_block_dgrad",
            "conv_block_wgrad")
 
@@ -2931,6 +3375,9 @@ def main(argv=None) -> int:
                          "without its learner; prints no result")
     ap.add_argument("--trace", action="store_true",
                     help="only build and run the [trace] phase (the telemetry plane); "
+                         "prints no result")
+    ap.add_argument("--int8", action="store_true",
+                    help="only build and run the [int8] phase (the int8 rung); "
                          "prints no result")
     ap.add_argument("--kernel-times", metavar="B,B,...",
                     help="only build, hold every block's forward against its plain "
@@ -2979,6 +3426,9 @@ def main(argv=None) -> int:
         return 0
     if args.trace:
         phase_trace(dev, pong_states(8)[0])
+        return 0
+    if args.int8:
+        phase_int8(dev)
         return 0
     if args.parity:
         phase_kernels(dev, timed_batches=())
@@ -3036,7 +3486,11 @@ def main(argv=None) -> int:
     if step["launches_per_update"] != PER_UPDATE:
         raise AssertionError(f"launches per update: {step['launches_per_update']}")
 
-    resume = phase_resume(dev, states)
+    import shutil
+    import tempfile
+
+    serve_ckpt = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    resume = phase_resume(dev, states, keep_ckpt=os.path.join(serve_ckpt, "checkpoints"))
     # 4 updates over the three runs, and a greedy eval in each of the 2 epochs
     want = {k: 4 * n for k, n in PER_UPDATE.items()}
     want["conv_block_fwd"] += 2 * 200 * 4
@@ -3053,11 +3507,19 @@ def main(argv=None) -> int:
     vtrace_launches = {k: sum(v[k] for v in vtrace["launches"].values()) for k in COUNTED}
     overlap = phase_overlap(dev, train, step)
     overlap_launches = {k: sum(v[k] for v in overlap["launches"].values()) for k in COUNTED}
+    int8 = phase_int8(dev)
+    int8_launches = {k: sum(v[k] for v in int8["launches"].values()) for k in COUNTED}
+    try:
+        serve_flags = phase_serve_flags(dev, os.path.join(serve_ckpt, "checkpoints"))
+    finally:
+        shutil.rmtree(serve_ckpt, ignore_errors=True)
+    serve_flags_launches = serve_flags["launches"]
     games = phase_games(dev)
     games_launches = {k: sum(v[k] for v in games["launches"].values()) for k in COUNTED}
     trace = phase_trace(dev, states)
     trace_launches = {k: sum(v[k] for v in trace["launches"].values()) for k in COUNTED}
     for name, got in (("vtrace", vtrace_launches), ("overlap", overlap_launches),
+                      ("int8", int8_launches), ("serve_flags", serve_flags_launches),
                       ("games", games_launches), ("trace", trace_launches)):
         if not all(got.values()):
             raise AssertionError(f"[{name}] a kernel of the path never launched: {got}")
@@ -3068,11 +3530,14 @@ def main(argv=None) -> int:
                    "sync": sync_launches["conv_block_fwd"],
                    "vtrace": vtrace_launches["conv_block_fwd"],
                    "overlap": overlap_launches["conv_block_fwd"],
+                   "int8": int8_launches["conv_block_fwd"],
+                   "serve_flags": serve_flags_launches["conv_block_fwd"],
                    "games": games_launches["conv_block_fwd"],
                    "trace": trace_launches["conv_block_fwd"]}
     bwd_by_path = {k: {"train": train_launches[k], "resume": resume["launches"]["train"][k],
                        "sync": sync_launches[k], "vtrace": vtrace_launches[k],
-                       "overlap": overlap_launches[k], "games": games_launches[k],
+                       "overlap": overlap_launches[k], "int8": int8_launches[k],
+                       "serve_flags": serve_flags_launches[k], "games": games_launches[k],
                        "trace": trace_launches[k]}
                    for k in COUNTED if k != "conv_block_fwd"}
     fwd_ms_at = {nb: {k: sum(r[k] for r in rs if r["block"] != "block0_uint8")
@@ -3159,6 +3624,8 @@ def main(argv=None) -> int:
                     "vtrace": {k: v for k, v in vtrace.items() if k not in ("vjp_rows", "fwd_rows")},
                     "overlap": {k: v for k, v in overlap.items()
                                 if k not in ("vjp_rows", "fwd_rows")},
+                    "int8": {k: v for k, v in int8.items() if k != "launches"},
+                    "serve_flags": serve_flags["numbers"],
                     "games": {k: v for k, v in games.items() if k != "vjp_rows"},
                     "trace": trace, "packages": probe}))
     log(card)

@@ -22,7 +22,10 @@ block's custom VJP
 (actors/master.py), the train feed and pinned staging (data/), the
 learner step (parallel/train_step.py) and the trainer with its callbacks
 (train/); the V-trace learner (parallel/vtrace_step.py, ``--trainer
-tpu_vtrace_ba3c``, and the fused trainer's ``--overlap``); and the games
+tpu_vtrace_ba3c``, and the fused trainer's ``--overlap``); the games
 as host players of the plane and of eval/play
-(envs/jaxenv/host_adapter.py).
+(envs/jaxenv/host_adapter.py); the telemetry plane (telemetry/); and the
+int8 rung of the rollout precision ladder (quantize/: ``--rollout_dtype
+int8`` on the predictor and the overlap's actor) with the single serving
+plane's SLO, canary and shadow flags.
 """

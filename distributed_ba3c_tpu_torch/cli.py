@@ -28,14 +28,34 @@ Tensorpack did; a ``jax:<game>`` simulator steps one env of the on-device
 game on CPU tensors (``envs/jaxenv/host_adapter.py``), and so do eval and
 play. The fused trainer runs the same games batched on the card. The JAX
 CLI's fleet supervision and autoscaling, ``--fleets``, ``--fleet_accum``,
-remote fleets (``--env zmq:``), ``gym:`` players, the serving plane's
-replicas, canary and shadow policies and int8 are not ported yet (ROADMAP
-queue A)::
+remote fleets (``--env zmq:``), ``gym:`` players and the serving plane's
+replicas (``--serve_replicas``, ``--serve_replicas_max``,
+``--canary_autopromote``) are not ported yet (ROADMAP queue A)::
 
     python -m distributed_ba3c_tpu_torch --trainer tpu_fused_ba3c --env jax:coinrun
         --batch_size 20480 --rollout_len 20 --gamma 0.999 --eval_max_steps 2000
     python -m distributed_ba3c_tpu_torch --env jax:breakout --simulator_procs 16
     python -m distributed_ba3c_tpu_torch --task eval --env jax:coinrun --load <logdir>/checkpoints
+
+The rollout precision ladder: ``--rollout_dtype float32|bfloat16|int8``
+is the serving table's precision on the ZMQ trainers and the actor's on
+``--overlap`` (the learner stays f32). int8 takes exactly one calibration
+source: ``--quant_spec spec.json`` (a frozen ``QuantSpec``), or
+``--quant_calibrate N``, which on the ZMQ trainers serves f32 while the
+shadow mirror calibrates on the first N served batches and then switches
+the plane to int8 in place, and on ``--overlap`` calibrates on N f32
+rollout windows before training. The ZMQ trainers' single serving plane
+takes ``--serve_slo_ms`` (deadline admission and shedding),
+``--canary_load <ckpt dir> --canary_fraction F`` (a second policy on a
+fraction F of the traffic) and ``--shadow_load <ckpt dir>`` (a policy
+mirroring every served batch, its results dropped). eval and play always
+serve float32, as the JAX CLI's do::
+
+    python -m distributed_ba3c_tpu_torch --env cpp:pong --rollout_dtype int8 --quant_calibrate 8
+    python -m distributed_ba3c_tpu_torch --trainer tpu_fused_ba3c --overlap --env jax:pong \
+        --rollout_dtype int8 --quant_spec spec.json
+    python -m distributed_ba3c_tpu_torch --env cpp:pong --serve_slo_ms 200 \
+        --canary_load runs/b/checkpoints --canary_fraction 0.25 --shadow_load runs/c/checkpoints
 
 Every trainer takes the telemetry plane's flags: ``--telemetry_port``
 serves ``/metrics``, ``/json``, ``/flight`` and ``/trace`` while the run
@@ -145,8 +165,45 @@ def make_parser() -> argparse.ArgumentParser:
         "collate fresh arrays and copy them at the head of the step",
     )
     p.add_argument(
-        "--rollout_dtype", default="float32", choices=["float32", "bfloat16"],
-        help="param storage of the serving table (the heads stay f32)",
+        "--rollout_dtype", default="float32", choices=["float32", "bfloat16", "int8"],
+        help="rollout/serving forward precision (the learner keeps f32): the "
+        "serving table on the ZMQ trainers, the actor's snapshot with "
+        "--overlap; int8 quantizes weights per channel and needs one "
+        "calibration source, --quant_spec or --quant_calibrate (the heads "
+        "stay f32)",
+    )
+    p.add_argument(
+        "--quant_spec", default=None,
+        help="int8: a frozen QuantSpec JSON of per-layer activation scales. "
+        "Exactly one of --quant_spec / --quant_calibrate with --rollout_dtype int8",
+    )
+    p.add_argument(
+        "--quant_calibrate", type=int, default=0,
+        help="int8: calibrate the activation scales on the first N served "
+        "batches (ZMQ trainers: f32 until the spec freezes, then int8 in "
+        "place) or on N f32 rollout windows (--overlap). 0 = off",
+    )
+    # -- the serving plane (one replica) -------------------------------------
+    p.add_argument(
+        "--serve_slo_ms", type=float, default=0.0,
+        help="predictor deadline budget in ms (0 = off): tasks that cannot "
+        "make it are shed with a typed reject (the masters answer a "
+        "uniform-random action) and a full admission queue rejects fast",
+    )
+    p.add_argument(
+        "--canary_load", default=None,
+        help="checkpoint dir served as the 'canary' policy on "
+        "--canary_fraction of the predict traffic (policy_canary_rows_total)",
+    )
+    p.add_argument(
+        "--canary_fraction", type=float, default=0.0,
+        help="fraction of predict traffic routed to --canary_load "
+        "(deterministic group-granular split, no RNG)",
+    )
+    p.add_argument(
+        "--shadow_load", default=None,
+        help="checkpoint dir served as the 'shadow' policy: it mirrors every "
+        "served batch and its results reach no caller (shadow_* series)",
     )
     p.add_argument(
         "--conv_backend", default=None, choices=["cuda", "torch"],
@@ -410,11 +467,38 @@ def _run_sync(args, cfg: BA3CConfig) -> int:
     else:
         c2s, s2c = default_pipes()
     score_q: queue.Queue = queue.Queue(maxsize=4096)
+    # canary and shadow policies from their checkpoints, and the int8
+    # rung's frozen spec, loaded once
+    extras = []
+    for name, root, fraction in (("canary", args.canary_load, args.canary_fraction),
+                                 ("shadow", args.shadow_load, None)):
+        if root:
+            from distributed_ba3c_tpu_torch.train.checkpoint import restore_params
+
+            net = build_net()
+            step_k = restore_params(net, root)
+            logger.info("%s policy: step %d of %s", name, step_k, root)
+            extras.append((name, net.state_dict(), fraction))
+    quant_spec = None
+    if args.quant_spec:
+        from distributed_ba3c_tpu_torch.quantize.spec import QuantSpec
+
+        quant_spec = QuantSpec.load(args.quant_spec)
     # the serving forward swaps the served params into its own module
     predictor = BatchedPredictor(
         build_net(), model.state_dict(), batch_size=cfg.predict_batch_size,
-        rollout_dtype=args.rollout_dtype, device=device,
+        slo_ms=args.serve_slo_ms, rollout_dtype=args.rollout_dtype,
+        quant_spec=quant_spec, quant_calibrate=args.quant_calibrate,
+        device=device,
     )
+    # the learner's publishes touch only 'default'; the canary and the
+    # shadow are pinned policies behind the same scheduler
+    for name, params_k, fraction in extras:
+        predictor.add_policy(name, params_k)
+        if name == "canary":
+            predictor.set_canary("canary", fraction)
+        else:
+            predictor.set_shadow("shadow")
     # every serving bucket once now, not under the fleet's first requests
     predictor.warmup(cfg.state_shape)
     if vtrace:
@@ -521,10 +605,12 @@ def _run_eval(args, cfg, model, params) -> int:
     from distributed_ba3c_tpu_torch.train.eval import eval_model
     from distributed_ba3c_tpu_torch.utils import logger
 
+    # eval scores the float32 policy whatever --rollout_dtype says, as the
+    # JAX CLI's does
     predictor = BatchedPredictor(
         model, params,
         batch_size=args.predict_batch_size or max(args.nr_eval, 1),
-        greedy=True, rollout_dtype=args.rollout_dtype, device=args.device,
+        greedy=True, device=args.device,
     )
     build_player = _build_player_factory(args, cfg)
 
@@ -547,9 +633,10 @@ def _run_play(args, cfg, model, params) -> int:
 
     from distributed_ba3c_tpu_torch.predict.server import BatchedPredictor
 
+    # float32, whatever --rollout_dtype says (as eval)
     predictor = BatchedPredictor(
         model, params, batch_size=args.predict_batch_size or 1, greedy=True,
-        rollout_dtype=args.rollout_dtype, device=args.device,
+        device=args.device,
     )
     build_player = _build_player_factory(args, cfg)
     cap = args.max_steps or cfg.episode_length_cap
@@ -596,6 +683,49 @@ def _arm_telemetry(args) -> None:
         telemetry.install_signal_dump()
 
 
+def check_flags(parser: argparse.ArgumentParser, args) -> None:
+    """The JAX CLI's rules for the int8 and serving flags (its
+    ``orchestrate/topology.py``, ``ModeTopology``, ``ServingTopology`` and
+    ``TopologySpec``), under its messages, as usage errors (exit 2)."""
+    if args.quant_calibrate < 0:
+        parser.error(
+            f"mode.quant_calibrate must be >= 0, got {args.quant_calibrate}"
+        )
+    if args.rollout_dtype == "int8":
+        if bool(args.quant_spec) == bool(args.quant_calibrate):
+            parser.error(
+                "rollout_dtype int8 needs exactly ONE calibration "
+                "source: a frozen quant_spec file OR quant_calibrate N "
+                "live batches (docs/ingest.md)"
+            )
+    elif args.quant_spec or args.quant_calibrate:
+        parser.error(
+            "quant_spec/quant_calibrate calibrate the int8 rung — "
+            f"they do not apply to rollout_dtype {args.rollout_dtype!r}"
+        )
+    if (args.serve_slo_ms or args.canary_load or args.shadow_load
+            or args.canary_fraction > 0):
+        if bool(args.canary_load) != bool(args.canary_fraction > 0):
+            parser.error(
+                "serving.canary_load and serving.canary_fraction come "
+                "together: the checkpoint names WHAT to canary, the "
+                "fraction names HOW MUCH traffic it gets"
+            )
+        if not 0 <= args.canary_fraction <= 1:
+            parser.error(
+                "serving.canary_fraction must be a traffic fraction in "
+                f"[0, 1], got {args.canary_fraction}"
+            )
+    if (args.rollout_dtype == "int8" and args.trainer == "tpu_fused_ba3c"
+            and not args.overlap):
+        parser.error(
+            "rollout_dtype int8 on the fused trainer quantizes the "
+            "ACTOR program's params snapshot — it requires overlap "
+            "(the monolithic fused program has no separate actor "
+            "forward to quantize)"
+        )
+
+
 def main(argv: Optional[list] = None) -> int:
     import torch
 
@@ -605,6 +735,7 @@ def main(argv: Optional[list] = None) -> int:
     args = parser.parse_args(argv)
     if args.nr_eval is None:
         args.nr_eval = 8
+    check_flags(parser, args)
     if args.profiler_port:
         raise SystemExit(
             "--profiler_port: the port has no profiler server (the JAX CLI's "

@@ -26,9 +26,13 @@ and entropy beta each epoch, and every epoch ends in a checkpoint under
 ``<logdir>/checkpoints`` (keep-best on the greedy eval). ``--overlap``
 swaps the step for ``fused/overlap.py``'s actor/learner pair on two CUDA
 streams (a checkpoint holds the train state only; a resumed overlap run
-re-primes the block in flight). It leaves out what the JAX loop adds for
-multi-host runs (collective saves, the watchdog, ``BA3C_PARAM_DIGEST``),
-int8 and ``fleet_accum`` (ROADMAP queue A). The loop has no actor plane,
+re-primes the block in flight); ``--rollout_dtype int8`` (with
+``--overlap``) quantizes the actor's forward, its ``QuantSpec`` loaded
+from ``--quant_spec`` or calibrated over ``--quant_calibrate`` f32
+rollout windows from the run's starting params (the restored ones under
+``--load``). It leaves out what the JAX loop adds for multi-host runs
+(collective saves, the watchdog, ``BA3C_PARAM_DIGEST``) and
+``fleet_accum`` (ROADMAP queue A). The loop has no actor plane,
 but ``--telemetry_port`` serves its learner counters and flight ring while
 it runs, and each epoch's record also goes to TensorBoard events and to
 ``<logdir>/channels.jsonl``.
@@ -376,6 +380,28 @@ def run_fused_training(args, cfg: BA3CConfig) -> int:
         mgr = CheckpointManager(args.load)
         state.train = restore_train_state(state.train, mgr)
         logger.info("resumed train state at step %d", state.train.step)
+    quant_spec = None
+    if getattr(args, "rollout_dtype", "float32") == "int8":
+        # the calibration source (cli.py checked exactly one): a frozen
+        # spec file, or N f32 rollout windows through the actor's own
+        # rollout body, from the params this run starts with
+        from distributed_ba3c_tpu_torch.quantize.calibrate import calibrate_from_env
+        from distributed_ba3c_tpu_torch.quantize.spec import QuantSpec
+
+        if args.quant_spec:
+            quant_spec = QuantSpec.load(args.quant_spec)
+        else:
+            dev = _param_device(model)
+            with torch.no_grad():
+                quant_spec = calibrate_from_env(
+                    model, cfg, env, model.state_dict(),
+                    device_draws(env, args.seed, dev), n_envs=n_envs,
+                    batches=args.quant_calibrate, rollout_len=rollout_len,
+                )
+        logger.info(
+            "int8 rollout forward: quant spec %s (%d calibration batches)",
+            quant_spec.sha256()[:12], quant_spec.calibration_batches,
+        )
     if args.overlap:
         # the actor and the learner on two streams: rollout k+1 beside
         # learner k, the one-update lag corrected by V-trace
@@ -386,6 +412,7 @@ def run_fused_training(args, cfg: BA3CConfig) -> int:
             grad_chunk_samples=args.grad_chunk_samples,
             steps_per_dispatch=args.steps_per_dispatch,
             rollout_dtype=args.rollout_dtype,
+            quant_spec=quant_spec,
         )
         state = step.put(state)
     else:

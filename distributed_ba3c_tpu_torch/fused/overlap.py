@@ -17,8 +17,11 @@ The torch design:
 - **The snapshot.** Adam writes ``model``'s parameters in place, so the
   actor runs its own ``BA3CNet`` (a copy of ``model``; ``bfloat16``
   storage under ``rollout_dtype="bfloat16"``, the heads computing in f32
-  either way). Its params are refreshed by a copy at the head of every
-  window, issued on the actor's stream after the learner's pending work:
+  either way; under ``"int8"`` the quantized forward of
+  ``quantize/qforward.py``, whose table the snapshot fills by quantizing
+  the learner's params with the run's ``QuantSpec``: quantize-on-snapshot).
+  Its params are refreshed at the head of every window,
+  issued on the actor's stream after the learner's pending work:
   window k+1's copy queues behind window k's rollout on the same stream,
   so it never overwrites params a running window reads. The learner's
   stream waits for the copy's event before its Adam can write the source.
@@ -44,7 +47,7 @@ Nothing falls back: a failed stream or event call fails the run. On the
 CPU there are no streams and the two halves run in turn.
 
 Left out: ``macro_fleets > 1`` (``--fleet_accum``, the macro learner,
-ROADMAP queue A item 8) and int8 actors (item 6); each raises.
+ROADMAP queue A item 8); it raises.
 """
 
 from __future__ import annotations
@@ -241,6 +244,7 @@ def make_overlap_step(
     lag: int = 1,
     rollout_dtype: str = "float32",
     macro_fleets: int = 1,
+    quant_spec=None,
 ) -> Callable:
     """Build the overlapped step: ``fn(state, entropy_beta,
     learning_rate=None) -> (state, metrics)``, the fused step's call shape,
@@ -251,7 +255,9 @@ def make_overlap_step(
     ``lag=1``: window k+1 rolls (actor stream) beside learner k (the
     caller's stream). ``lag=0``: each window's block is learned right after
     it rolls, the fused step's schedule. ``rollout_dtype`` is the actor
-    snapshot's storage.
+    snapshot's storage; ``"int8"`` needs ``quant_spec`` (a calibrated
+    :class:`~distributed_ba3c_tpu_torch.quantize.spec.QuantSpec`), and the
+    learner stays f32 either way.
 
     ``optimizer`` must be the one over ``model``'s params (the state's)."""
     if lag not in (0, 1):
@@ -260,10 +266,10 @@ def make_overlap_step(
         raise ValueError(
             f"rollout_dtype must be one of {ROLLOUT_DTYPES}, got {rollout_dtype!r}"
         )
-    if rollout_dtype == "int8":
-        raise NotImplementedError(
-            "rollout_dtype='int8' is not ported yet: int8 actors wait for "
-            "ROADMAP queue A item 6"
+    if rollout_dtype == "int8" and quant_spec is None:
+        raise ValueError(
+            "rollout_dtype='int8' needs a calibrated quant_spec (load one "
+            "with QuantSpec.load, or calibrate via quantize.calibrate)"
         )
     if macro_fleets != 1:
         raise NotImplementedError(
@@ -272,9 +278,20 @@ def make_overlap_step(
         )
     device = next(model.parameters()).device
     # the actor's own net: the learner's Adam never writes what it reads
-    actor_net = copy.deepcopy(model).requires_grad_(False)
-    if rollout_dtype == "bfloat16":
-        actor_net.to(torch.bfloat16)
+    if rollout_dtype == "int8":
+        from distributed_ba3c_tpu_torch.quantize.qforward import (
+            make_quant_apply,
+            quantize_params,
+        )
+        from distributed_ba3c_tpu_torch.utils import logger
+
+        actor_net = make_quant_apply(model, arm="auto", device=device)
+        logger.info("overlap actor: int8 forward, arm %s on %s, quant spec %s",
+                    actor_net.quant_arm, device, quant_spec.sha256()[:12])
+    else:
+        actor_net = copy.deepcopy(model).requires_grad_(False)
+        if rollout_dtype == "bfloat16":
+            actor_net.to(torch.bfloat16)
     actor_params = list(actor_net.parameters())
     learner_params = list(model.parameters())
     rollout_body = make_rollout_body(actor_net, cfg, env, record_log_probs=True)
@@ -295,6 +312,10 @@ def make_overlap_step(
         if actor_stream is not None:
             actor_stream.wait_stream(torch.cuda.current_stream(device))
         with _on_actor(), torch.no_grad():
+            if rollout_dtype == "int8":
+                # quantize-on-snapshot: the f32 learner params become the
+                # actor's int8 table
+                actor_net.load_table(quantize_params(model.state_dict(), quant_spec))
             for dst, src in zip(actor_params, learner_params):
                 dst.copy_(src)
             if actor_stream is not None:
@@ -492,6 +513,8 @@ def make_overlap_step(
         return OverlapState(train=train, actor=astate, block=block), out
 
     step.put = put
+    step.rollout_dtype = rollout_dtype
+    step.quant_spec = quant_spec
     step.steps_per_dispatch = steps_per_dispatch
     step.actor_net = actor_net
     step.reset_episode_stats = reset_episode_stats

@@ -12,6 +12,13 @@ The flax tree is a nested dict of numpy arrays, named as
 
 Both directions are pure permutations, so the round trip is exact.
 
+The int8 rung's serving table crosses too (:func:`quant_from_flax`,
+:func:`quant_to_flax`): the JAX package's ``{Conv_i, Dense_0}:
+{kernel_q, w_scale, bias, act_scale}`` tree with HWIO / ``[in, out]``
+int8 kernels, and the port's flat table of ``quantize/qforward.py``, whose
+kernels are ``[K, Co]`` im2col matrices, K-contiguous and zero-padded to a
+multiple of 8.
+
 The optimizer's state crosses the same way. optax's ``ScaleByAdamState``
 (``count``, and ``mu`` and ``nu`` as trees of the params' names) maps one
 to one onto torch Adam's per-parameter ``step``, ``exp_avg`` and
@@ -115,3 +122,61 @@ def adam_to_optax(state) -> Tuple[np.ndarray, dict, dict]:
     mu = to_flax({k: s["exp_avg"] for k, s in state.items()})
     nu = to_flax({k: s["exp_avg_sq"] for k, s in state.items()})
     return count, mu, nu
+
+
+_QUANT_LEAVES = ("w_scale", "bias", "act_scale")
+
+
+def quant_from_flax(table) -> Dict[str, torch.Tensor]:
+    """The JAX package's int8 serving table -> the port's (CPU tensors)."""
+    from distributed_ba3c_tpu_torch.quantize.qforward import k_major
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, copy=True))
+
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaves in table.items():
+        if "kernel_q" in leaves:
+            kq = t(leaves["kernel_q"])
+            out[f"{name}.kernel_q"] = k_major(kq.reshape(-1, kq.shape[-1]))
+            for leaf in _QUANT_LEAVES:
+                out[f"{name}.{leaf}"] = t(leaves[leaf])
+    for flax_name, name in _DENSE[1:]:
+        out[f"{name}.weight"] = t(table[flax_name]["kernel"]).t().contiguous()
+        out[f"{name}.bias"] = t(table[flax_name]["bias"])
+    out["prelu.alpha"] = t(table["PReLU_0"]["alpha"])
+    return out
+
+
+def quant_to_flax(table, in_channels: int = 4) -> dict:
+    """The inverse of :func:`quant_from_flax`: the port's int8 table ->
+    the JAX package's tree of numpy arrays. A conv's kernel size is read
+    off its padded K: ``k*k*Ci`` is the one value in ``(Kp - 8, Kp]``, Ci
+    being ``in_channels`` for ``Conv_0`` and the previous conv's Co after."""
+
+    def a(x: torch.Tensor) -> np.ndarray:
+        return x.detach().cpu().contiguous().numpy().copy()
+
+    out: dict = {}
+    ci = in_channels
+    n_convs = sum(1 for k in table if k.startswith("Conv_") and k.endswith(".kernel_q"))
+    for name in [f"Conv_{i}" for i in range(n_convs)] + ["Dense_0"]:
+        if f"{name}.kernel_q" not in table:
+            continue
+        kq = table[f"{name}.kernel_q"]
+        kp, co = kq.shape
+        if name == "Dense_0":
+            kernel = a(kq)
+        else:
+            k = max(k for k in range(1, kp + 1) if k * k * ci <= kp)
+            if k * k * ci <= kp - 8:
+                raise ValueError(f"{name}: no k with k*k*{ci} in ({kp - 8}, {kp}]")
+            kernel = a(kq[: k * k * ci]).reshape(k, k, ci, co)
+            ci = co
+        out[name] = {"kernel_q": kernel,
+                     **{leaf: a(table[f"{name}.{leaf}"]) for leaf in _QUANT_LEAVES}}
+    for flax_name, name in _DENSE[1:]:
+        out[flax_name] = {"kernel": a(table[f"{name}.weight"].t()),
+                          "bias": a(table[f"{name}.bias"])}
+    out["PReLU_0"] = {"alpha": a(table["prelu.alpha"])}
+    return out

@@ -30,13 +30,23 @@ spans under the predictor's role when its call is fetched:
 time) and ``predict_fetch`` (issue to results on the host: on the card,
 the wait on the call's CUDA event, i.e. the device's time plus the
 device-to-host copy, and the pipeline's wait for the fetch). The
-untraced path reads no clock for them. The JAX package's int8 rung is not
-ported yet.
+untraced path reads no clock for them.
+
+**The int8 rung** (``rollout_dtype="int8"``, quantize/): with a frozen
+``quant_spec`` every publish quantizes the f32 params into the int8 table
+(``quantize_params``, on the predictor's stream) and the forward is the
+quantized module (``make_quant_apply``; its arm is logged). With
+``quant_calibrate=N`` instead the table serves f32 while the shadow mirror
+feeds every served batch to a ``CalibrationTap``; after N batches the
+spec freezes and ``_switch_to_int8`` quantizes every hot policy and swaps
+forward and table together, in place. ``serving_dtype`` says which
+precision serves now.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue
 import re
 import threading
@@ -289,8 +299,13 @@ class BatchedPredictor:
     dispatch_depth: device calls kept in flight by the scheduler (2: fetch
         call k only after dispatching call k+1).
     clock: monotonic-clock callable (tests inject a fake clock).
-    rollout_dtype: ``float32`` or ``bfloat16`` param storage (``int8`` is
-        not ported yet and raises NotImplementedError).
+    rollout_dtype: ``float32``, ``bfloat16`` or ``int8`` serving table.
+    quant_spec: the frozen :class:`~distributed_ba3c_tpu_torch.quantize.spec.QuantSpec`
+        of the int8 rung; or ``quant_calibrate`` = N live batches through
+        the calibration tap (``quant_method``, ``quant_percentile``).
+        ``int8`` takes exactly one of the two, and neither applies to
+        another dtype (``ValueError``, as JAX's). The int8 forward's arm
+        is ``auto``'s (``quantize/qforward.py``).
     tele_role: telemetry registry role (``predictor``; one per fleet
         when a learner hosts several).
     device: where the policies live and the forward runs; ``cuda`` by
@@ -315,6 +330,10 @@ class BatchedPredictor:
         tele_role: str = "predictor",
         rollout_dtype: str = "float32",
         device="cuda",
+        quant_spec=None,
+        quant_calibrate: int = 0,
+        quant_method: str = "absmax",
+        quant_percentile: float = 99.9,
     ):
         self._model = model
         # the masters' shed fallback draws uniform actions over this space
@@ -325,12 +344,33 @@ class BatchedPredictor:
                 f"{rollout_dtype!r}"
             )
         if rollout_dtype == "int8":
-            raise NotImplementedError(
-                "rollout_dtype='int8' is not ported yet: see ROADMAP.md, "
-                "'int8 rung' in the port's queue"
+            if (quant_spec is None) == (not quant_calibrate):
+                raise ValueError(
+                    "rollout_dtype='int8' needs exactly ONE calibration "
+                    "source: a frozen quant_spec, or quant_calibrate=N "
+                    "live batches through the CalibrationTap"
+                )
+        elif quant_spec is not None or quant_calibrate:
+            raise ValueError(
+                "quant_spec/quant_calibrate configure the int8 rung — "
+                f"they do not apply to rollout_dtype={rollout_dtype!r}"
             )
         self.rollout_dtype = rollout_dtype
         self.device = resolve_device(device)
+        #: the ACTIVE QuantSpec (int8 serving); None while f32/bf16 and
+        #: during the live-calibration window
+        self.quant_spec = None
+        self.tele_role = tele_role
+        # the forward make_fwd_sample runs and the publish cast (state_dict
+        # on the device -> table), swapped together by _switch_to_int8
+        # under this lock; the scheduler thread, where the switch runs,
+        # never needs it
+        self._swap_lock = threading.Lock()
+        self._fwd_model = model
+        self._cast: Optional[Callable] = None
+        if rollout_dtype == "int8" and quant_spec is not None:
+            self.quant_spec = quant_spec
+            self._fwd_model, self._cast = self._int8_program(quant_spec)
         # the predictor's own stream: every dispatch and every publish runs
         # on it, so one stream orders the params a call reads before it
         self._stream = (
@@ -341,7 +381,7 @@ class BatchedPredictor:
         self._gen.manual_seed(seed)
         # the generator is shared by the scheduler thread and sync callers
         self._gen_lock = threading.Lock()
-        self._policies = {"default": self._put_policy(params)}
+        self._policies = {"default": self._put_policy(params, self._cast)}
         self._batch_size = batch_size
         self._coalesce_s = coalesce_ms / 1000.0
         self._slo_s = slo_ms / 1000.0
@@ -387,6 +427,9 @@ class BatchedPredictor:
         self._c_shadow_batches = tele.counter("shadow_batches_total")
         self._c_shadow_rows = tele.counter("shadow_rows_total")
         self._c_cb_errors = tele.counter("callback_errors_total")
+        # batches served by the int8 table (the rest of batches_total
+        # served f32/bf16, incl. a calibration window's)
+        self._c_int8_batches = tele.counter("int8_batches_total")
         self._c_policy_rows = {
             "default": tele.counter("policy_default_rows_total")
         }
@@ -405,6 +448,21 @@ class BatchedPredictor:
         )
 
         self._pool = _StagePool(tele)
+        # the live-calibration window (int8 without a frozen spec): serve
+        # f32 while the shadow mirror feeds every batch to the tap; after
+        # N batches it freezes and _switch_to_int8 swaps forward + table
+        self._warm_shape = None
+        self._warm_dtype = None
+        if rollout_dtype == "int8" and self.quant_spec is None:
+            from distributed_ba3c_tpu_torch.quantize.calibrate import CalibrationTap
+
+            self.shadow_tap = CalibrationTap(
+                model, params, quant_calibrate,
+                method=quant_method, percentile=quant_percentile,
+                on_freeze=self._switch_to_int8, tele_role=tele_role,
+                device=self.device,
+            )
+            self._shadow = "default"
         self.threads: List[StoppableThread] = [
             StoppableThread(
                 target=self._scheduler, daemon=True, name="predictor-sched"
@@ -420,6 +478,10 @@ class BatchedPredictor:
         """Run every pow-2 bucket up to batch_size once, before traffic:
         the kernels' build and load, the allocator's first blocks and the
         CUDA context all happen here, not under a caller's deadline."""
+        # remembered for the int8 calibration switch: the swapped-in
+        # forward proves the same buckets before it takes traffic
+        self._warm_shape = tuple(state_shape)
+        self._warm_dtype = dtype
         b = 1
         while b <= _next_pow2(self._batch_size):
             self._run_device(np.zeros((b, *state_shape), dtype))
@@ -437,11 +499,96 @@ class BatchedPredictor:
             if t.is_alive():
                 t.join(timeout)
 
+    # -- the int8 rung -----------------------------------------------------
+    @property
+    def serving_dtype(self) -> str:
+        """The precision the table SERVES now: ``rollout_dtype``, except
+        during the int8 live-calibration window (f32 until the tap freezes
+        and the switch lands)."""
+        if self.rollout_dtype != "int8":
+            return self.rollout_dtype
+        return "int8" if self.quant_spec is not None else "float32"
+
+    def _int8_program(self, spec):
+        """The int8 forward (its arm resolved on this device, and logged)
+        and the publish cast for ``spec``."""
+        from distributed_ba3c_tpu_torch.quantize.qforward import (
+            make_quant_apply,
+            quantize_params,
+        )
+
+        net = make_quant_apply(self._model, "auto", device=self.device)
+        logger.info(
+            "predictor %s: int8 forward, arm %s on %s, quant spec %s",
+            self.tele_role, net.quant_arm,
+            self.device, spec.sha256()[:12],
+        )
+        return net, lambda table: quantize_params(table, spec)
+
+    def _on_stream(self):
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
+
+    def _switch_to_int8(self, spec) -> None:
+        """The CalibrationTap's freeze hook: switch the serving plane to
+        int8 IN PLACE -- quantize every hot policy, swap in the int8
+        forward, retire the shadow mirror and the tap, and prove the
+        warmed buckets through the new forward.
+
+        Runs on the scheduler thread (the tap fires from the shadow fetch),
+        so no async dispatch is concurrent with it; ``_swap_lock`` covers
+        the sync ``predict_batch`` path."""
+        fwd, cast = self._int8_program(spec)
+        while True:
+            # quantize OUTSIDE the lock, commit only if no publish replaced
+            # an entry meanwhile -- else a fresh f32 table would be dropped
+            snapshot = dict(self._policies)
+            with torch.no_grad(), self._on_stream():
+                table = {pid: cast(p) for pid, p in snapshot.items()}
+            with self._swap_lock:
+                current = self._policies
+                if len(current) == len(snapshot) and all(
+                    current.get(pid) is p for pid, p in snapshot.items()
+                ):
+                    self._cast = cast
+                    self._policies = table
+                    self._fwd_model = fwd
+                    self.quant_spec = spec
+                    break
+        # the tap saw its N batches; from here the mirror would only double
+        # the device work
+        self._shadow = None
+        self.shadow_tap = None
+        if self._warm_shape is not None:
+            b = 1
+            while b <= _next_pow2(self._batch_size):
+                self._run_device(np.zeros((b, *self._warm_shape), self._warm_dtype))
+                b *= 2
+        self._c_publishes.inc()
+        logger.info(
+            "predictor %s: calibrated over %d batches, serving int8 (spec %s)",
+            self.tele_role, spec.calibration_batches, spec.sha256()[:12],
+        )
+
     # -- policy table ------------------------------------------------------
-    def _put_policy(self, params) -> Dict[str, torch.Tensor]:
+    def _publish_policy(self, policy_id: str, params) -> None:
+        """Commit a publish to the table: cast/quantize OUTSIDE the swap
+        lock, store only if the serving forward did not change underneath
+        (a publish racing ``_switch_to_int8`` lands through the NEW cast,
+        never as an f32 table behind the int8 forward)."""
+        while True:
+            cast = self._cast
+            p = self._put_policy(params, cast)
+            with self._swap_lock:
+                if self._cast is cast:
+                    self._policies[policy_id] = p
+                    return
+
+    def _put_policy(self, params, cast=None) -> Dict[str, torch.Tensor]:
         """Params -> the serving table's storage: a device copy, float32
-        entries cast to the rollout dtype — ONE place, so every publish
-        path (ctor, add_policy, update_params) serves the same precision.
+        entries cast to the rollout dtype, then ``cast`` (the int8 rung's
+        quantize-on-publish) -- ONE place, so every publish path (ctor,
+        add_policy, update_params) serves the same precision.
 
         On CUDA the copy runs on the predictor's stream, after the caller's
         pending work on its current stream, so the dispatches that read
@@ -456,12 +603,16 @@ class BatchedPredictor:
             cast = dt if (dt is not None and v.dtype == torch.float32) else v.dtype
             return v.detach().to(device=self.device, dtype=cast, copy=True)
 
+        def build():
+            table = {k: put(v) for k, v in params.items()}
+            return table if cast is None else cast(table)
+
         if self._stream is None:
-            return {k: put(v) for k, v in params.items()}
+            return build()
         caller = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(caller)
         with torch.cuda.stream(self._stream):
-            table = {k: put(v) for k, v in params.items()}
+            table = build()
         caller.wait_stream(self._stream)
         return table
 
@@ -475,7 +626,7 @@ class BatchedPredictor:
                 f"policy id {policy_id!r} must match {_POLICY_ID_RE.pattern} "
                 "(it names Prometheus series)"
             )
-        self._policies[policy_id] = self._put_policy(params)
+        self._publish_policy(policy_id, params)
         self._c_policy_rows.setdefault(
             policy_id, self._tele.counter(f"policy_{policy_id}_rows_total")
         )
@@ -510,7 +661,7 @@ class BatchedPredictor:
         loudly, not create a dead entry."""
         if policy not in self._policies:
             raise KeyError(f"unknown policy {policy!r} — add_policy first")
-        self._policies[policy] = self._put_policy(params)
+        self._publish_policy(policy, params)
         self._c_publishes.inc()
 
     # -- API ---------------------------------------------------------------
@@ -662,13 +813,15 @@ class BatchedPredictor:
             logger.error("predictor callback raised %r", e)
 
     # -- internals ---------------------------------------------------------
-    def _dispatch(self, params, batch: np.ndarray):
+    def _dispatch(self, params, batch: np.ndarray, fwd=None):
         """Pad to the pow-2 bucket and launch forward + sampling; NO host
         fetch — the scheduler fetches via :meth:`_collect` only after the
         next group is dispatched. Returns ``(k, _Pending)``.
 
         ``params`` is passed explicitly so a multi-chunk caller serves ONE
-        parameter version even if a publish lands mid-batch."""
+        parameter version even if a publish lands mid-batch; ``fwd`` (the
+        forward module) likewise, as the int8 switch swaps it."""
+        model = self._fwd_model if fwd is None else fwd
         batch = np.asarray(batch)
         k = batch.shape[0]
         padded = _next_pow2(max(k, 1))
@@ -679,13 +832,13 @@ class BatchedPredictor:
         with torch.inference_mode(), self._gen_lock:
             if self._stream is None:
                 out = make_fwd_sample(
-                    self._model, params, host, self._gen, self._greedy
+                    model, params, host, self._gen, self._greedy
                 )
                 return k, _Pending(out)
             with torch.cuda.stream(self._stream):
                 states = host.to(self.device, non_blocking=True)
                 packed = make_fwd_sample(
-                    self._model, params, states, self._gen, self._greedy
+                    model, params, states, self._gen, self._greedy
                 )
                 out = torch.empty(packed.shape, dtype=packed.dtype,
                                   pin_memory=True)
@@ -721,13 +874,14 @@ class BatchedPredictor:
         Inputs larger than the serving bucket are chunked to it, and every
         chunk is dispatched before any is fetched. Params are snapshotted
         once per call: a publish mid-call must not split one logical batch
-        across two policies."""
+        across two policies, nor pair one forward with another's table."""
         cap = _next_pow2(max(self._batch_size, 1))
-        params = self._params
+        with self._swap_lock:
+            fwd, params = self._fwd_model, self._params
         if states.shape[0] <= cap:
-            return self._collect(self._dispatch(params, states))
+            return self._collect(self._dispatch(params, states, fwd))
         pending = [
-            self._dispatch(params, states[i:i + cap])
+            self._dispatch(params, states[i:i + cap], fwd)
             for i in range(0, states.shape[0], cap)
         ]
         self._c_chunked.inc()
@@ -863,6 +1017,8 @@ class BatchedPredictor:
         self._c_rows.inc(weight)
         self._h_occupancy.observe(weight)
         self._policy_counter(policy).inc(weight)
+        if self.quant_spec is not None:
+            self._c_int8_batches.inc()
         # tasks[0] is the group's oldest admit (FIFO pop order) — captured
         # BEFORE the singles-first reorder below
         t_oldest = tasks[0].t_admit
@@ -915,7 +1071,9 @@ class BatchedPredictor:
                     # the tap's states must outlive the staging buffer's
                     # reuse
                     states = states.copy()
-                self._fire(tap, states, actions[: inf.n], inf.policy)
+                # the calibration tap's statistics run on this stream
+                with self._on_stream():
+                    self._fire(tap, states, actions[: inf.n], inf.policy)
                 self._release_lease(inf, synced=True)
             else:
                 # no tap: DROP without a host sync; the staging buffer

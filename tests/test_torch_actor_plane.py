@@ -324,6 +324,7 @@ PROBE = textwrap.dedent('''
 
 
     def build(out, idx):
+        import distributed_ba3c_tpu_torch.quantize.spec  # noqa: F401  torch-free
         roots = sorted({m.split(".")[0] for m, v in sys.modules.items() if v is not None})
         with open(out, "w") as f:
             json.dump(roots, f)
@@ -370,7 +371,10 @@ def test_plane_modules_import_no_torch():
             "distributed_ba3c_tpu_torch.telemetry.wire, "
             "distributed_ba3c_tpu_torch.telemetry.tracing, "
             "distributed_ba3c_tpu_torch.telemetry.recorder, "
-            "distributed_ba3c_tpu_torch.telemetry.exporters\n"
+            "distributed_ba3c_tpu_torch.telemetry.exporters, "
+            "distributed_ba3c_tpu_torch.quantize.spec\n"
+            "import distributed_ba3c_tpu_torch.quantize as q\n"
+            "assert q.QuantSpec is q.spec.QuantSpec\n"
             "assert 'torch' not in sys.modules, 'torch'\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=120, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))

@@ -152,5 +152,15 @@ def test_parser_keeps_the_jax_flag_defaults():
               "predict_batch_size", "predictor_threads", "frame_history", "wire",
               "wire_crc", "pipe_c2s", "pipe_s2c", "actor_timeout", "publish_every",
               "ingest_staging", "rollout_dtype", "num_actions", "image_size",
-              "fc_units", "gamma", "reward_clip", "overlap"):
+              "fc_units", "gamma", "reward_clip", "overlap",
+              # the int8 rung and the single serving plane
+              "quant_spec", "quant_calibrate", "serve_slo_ms", "canary_load",
+              "canary_fraction", "shadow_load"):
         assert port[k] == ref[k], k
+    # the rollout precision ladder's rungs, and the new flags' types
+    actions = {p: {a.dest: a for a in parser._actions}
+               for p, parser in (("port", cli.make_parser()), ("jax", jax_parser()))}
+    for k in ("rollout_dtype", "quant_spec", "quant_calibrate", "serve_slo_ms",
+              "canary_load", "canary_fraction", "shadow_load"):
+        a, r = actions["port"][k], actions["jax"][k]
+        assert (a.choices, a.type) == (r.choices, r.type), k

@@ -342,7 +342,7 @@ def test_bf16_snapshot_actor_runs_and_the_learner_trains():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(rollout_dtype="int8"), NotImplementedError),
+    (dict(rollout_dtype="int8"), ValueError),  # int8 without a quant_spec
     (dict(macro_fleets=2), NotImplementedError),
     (dict(lag=2), ValueError),
     (dict(rollout_dtype="float16"), ValueError),

@@ -263,9 +263,20 @@ def test_bfloat16_rollout_casts_params_and_stays_close():
 
 
 def test_rollout_dtype_validation(monkeypatch):
+    from distributed_ba3c_tpu_torch.quantize import QuantSpec, quant_layer_names
+
     m = _model()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    spec = QuantSpec(act_scales={n: 1.0 for n in quant_layer_names(m)})
+    # JAX's three ValueErrors: int8 with no source, int8 with both, a
+    # quant source off int8
+    with pytest.raises(ValueError, match="exactly ONE calibration source"):
         BatchedPredictor(m, m.state_dict(), rollout_dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="exactly ONE calibration source"):
+        BatchedPredictor(m, m.state_dict(), rollout_dtype="int8", quant_spec=spec,
+                         quant_calibrate=4, device="cpu")
+    with pytest.raises(ValueError, match="do not apply"):
+        BatchedPredictor(m, m.state_dict(), rollout_dtype="bfloat16", quant_spec=spec,
+                         device="cpu")
     with pytest.raises(ValueError, match="rollout_dtype"):
         BatchedPredictor(m, m.state_dict(), rollout_dtype="fp8", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
